@@ -3,19 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from m3vit_tpu_torch/csrc, holds each
-against its plain PyTorch version at the flagship's shapes and times them,
-then serves the flagship model (ViT-small-MoE, 512x512, 5 PASCAL tasks,
+Builds the hand-written kernels from m3vit_tpu_torch/csrc (K1/K2 flash
+attention forward/backward, K3/K4 fused FFN forward/backward), holds each
+against its plain PyTorch version at the flagship's shapes and times them.
+Then it serves the flagship model (ViT-small-MoE, 512x512, 5 PASCAL tasks,
 seeded random weights) through InferenceSession at buckets 1/2/4/8 plus one
-5-task eval, and checks the kernel path against the plain path on the same
-weights.  Each phase prints one JSON line; the line before the last is
-nvidia-smi's card name and power limit, and the last line is
-{"ok": true, "device": {...}}.  Any failed check exits non-zero before
-that line; without CUDA the script exits non-zero at once.
+5-task eval, and trains it (B=8 synthetic batches, shared prefix, train
+capacity factor 1.25, SGD): one step with kernels against one with the
+plain path on the same weights, batch and gate noise (the plain path also
+replaying the kernel path's routing, whole and for the backbone alone under
+a fixed cotangent), then steps that must lower the loss, timed, with the
+kernels' launches counted per step.  Each phase prints one JSON line; the
+line before the last is nvidia-smi's card name and power limit, and the
+last line is {"ok": true, "device": {...}}.  Any failed check exits
+non-zero before that line; without CUDA the script exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -28,23 +34,55 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from m3vit_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
+from m3vit_tpu_torch.losses.functions import loss_fn_for_task  # noqa: E402
+from m3vit_tpu_torch.losses.schemes import multi_task_loss  # noqa: E402
 from m3vit_tpu_torch.models import build_flagship, set_use_kernels  # noqa: E402
+from m3vit_tpu_torch.models import vit_moe  # noqa: E402
+from m3vit_tpu_torch.moe.gating import noisy_vmoe_gate, small_topk  # noqa: E402
 from m3vit_tpu_torch.ops import _build  # noqa: E402
 from m3vit_tpu_torch.ops.expert_ffn import (  # noqa: E402
+    expert_ffn_bwd,
+    expert_ffn_bwd_plain,
     expert_ffn_fwd,
     fused_expert_ffn_plain,
 )
 from m3vit_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_bwd,
     flash_attention_fwd,
+    flash_attention_qkv_bwd_plain,
     flash_attention_qkv_plain,
 )
 from m3vit_tpu_torch.serve import InferenceSession  # noqa: E402
+from m3vit_tpu_torch.train.optim import build_optimizer  # noqa: E402
+from m3vit_tpu_torch.train.step import make_train_step  # noqa: E402
 
 BUCKETS = (1, 2, 4, 8)
 IMG = 512
 ATTN_TOL = 2e-2          # JAX package's bf16 tolerance (test_flash_attention.py:53)
 FFN_ABS_TOL, FFN_REL_TOL = 2e-2, 1e-2
 AGREE_MIN, LOGIT_REL_TOL = 0.99, 2e-2
+# backward kernels vs their plain versions (bf16 outputs; p, dS and da are
+# rounded to bf16 from f32 values summed in another order): relative
+# Frobenius error, and max abs error as a fraction of the largest |ref|
+GRAD_REL_TOL, GRAD_ABS_FRAC = 1e-2, 2e-2
+# kernel vs plain train step on the same weights, batch and noise: the
+# losses agree to TRAIN_LOSS_REL_TOL relative.  The backbone alone, under a
+# fixed random cotangent on its output tokens and with the plain path
+# replaying the kernel path's routing (RoutingTape), gives each parameter
+# group's gradient to BACKBONE_GRAD_REL_TOL (||g_kernel - g_plain|| /
+# ||g_plain||)
+# (limits about 10x and 2x the readings on an H100: 8.9e-6 in two runs, and
+# at most 0.0094 per group)
+TRAIN_LOSS_REL_TOL, BACKBONE_GRAD_REL_TOL = 1e-4, 2e-2
+TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 8, 10, 10
+LOSS_WEIGHTS = {"semseg": 1.0, "human_parts": 2.0, "sal": 5.0, "edge": 50.0,
+                "normals": 10.0}
+# bench.py:316-322: SGD, lr 0.002, momentum 0.9, wd 1e-4, poly over 100
+# epochs of 100 steps
+OPTIM = {"optimizer": "sgd", "scheduler": "poly", "epochs": 100,
+         "optimizer_kwargs": {"lr": 0.002, "momentum": 0.9,
+                              "weight_decay": 1e-4}}
 
 # (bf16 dense tensor-core FLOP/s, HBM bytes/s) by device name, from NVIDIA's
 # data sheet (H100 SXM5, at its 700 W limit)
@@ -130,8 +168,11 @@ def attention_phase(peaks, dev):
 def ffn_phase(peaks, dev):
     g = torch.Generator(device=dev).manual_seed(1)
     cases = []
+    # expert banks at the serving capacity (cf 2.0) and the train capacity
+    # (cf 1.25), and the dense MLP at E=1; B=8, 1025 tokens per image
     for name, E, Ct, d, Hd in (("experts", 16, 4104, 384, 384),
-                               ("dense_mlp", 1, 8200, 384, 1536)):
+                               ("dense_mlp", 1, 8200, 384, 1536),
+                               ("experts_train", 16, 2568, 384, 384)):
         r = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
         # unit-scale tokens (LayerNorm output) and fan-in scaled weights
         h = r(E, Ct, d).bfloat16()
@@ -167,6 +208,124 @@ def ffn_phase(peaks, dev):
             "mbytes": nbytes / 1e6,
         })
     emit({"phase": "expert_ffn_fwd", "cases": cases})
+    return cases
+
+
+def grad_errors(got, ref):
+    """(max abs err, relative Frobenius err, largest |ref|) of got vs ref."""
+    diff = got.float() - ref.float()
+    return (diff.abs().max().item(),
+            (diff.norm() / ref.float().norm().clamp(min=1e-30)).item(),
+            ref.float().abs().max().item())
+
+
+def check_grads(got, ref, what):
+    err, rel, scale = grad_errors(got, ref)
+    check(rel <= GRAD_REL_TOL and err <= GRAD_ABS_FRAC * max(1.0, scale)
+          and bool(torch.isfinite(got).all()),
+          f"{what}: max abs err {err} (ref max {scale}), rel {rel}")
+    return {"max_abs_err": err, "rel_err": rel, "ref_max": scale}
+
+
+def attention_bwd_phase(peaks, dev):
+    B, N, C, H = 8, 1025, 384, 6
+    d = C // H
+    scale = d ** -0.5
+    g = torch.Generator(device=dev).manual_seed(2)
+    qkv = torch.randn(B, N, 3 * C, device=dev, generator=g).bfloat16()
+    dout = torch.randn(B, N, C, device=dev, generator=g).bfloat16()
+    cases = []
+    for valid in (None, 1000):
+        n_kv = N if valid is None else valid
+        o, lse = flash_attention_fwd(qkv, H, scale, valid)
+        got = flash_attention_bwd(qkv, o, lse, dout, H, scale, valid)
+        ref = flash_attention_qkv_bwd_plain(qkv, o, lse, dout, H, scale,
+                                            valid)
+        errs = {f"d{n}": check_grads(got[..., i * C:(i + 1) * C],
+                                     ref[..., i * C:(i + 1) * C],
+                                     f"flash_attention_bwd valid_len={valid}"
+                                     f" d{n}")
+                for i, n in enumerate("qkv")}
+        # SDPA forward + backward through autograd, minus its forward
+        q, k, v = (t.detach().clone().requires_grad_() for t in
+                   qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4))
+        do4 = dout.view(B, N, H, d).transpose(1, 2)
+        mask = None if valid is None else (
+            torch.arange(N, device=dev) < valid).view(1, 1, 1, N)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=scale)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (q, k, v), do4)
+
+        flops = 10.0 * B * H * N * n_kv * d
+        nbytes = (2.0 * B * N * 3 * C * 2 + 2.0 * B * N * C * 2
+                  + 4.0 * B * H * N)
+        b_ms, b_by = bound(flops, nbytes, peaks)
+        cases.append({
+            "shape": f"qkv [{B},{N},{3 * C}] bf16, {H} heads of {d}",
+            "valid_len": valid, **errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "ms": time_ms(lambda: flash_attention_bwd(qkv, o, lse, dout, H,
+                                                      scale, valid)),
+            "plain_ms": time_ms(lambda: flash_attention_qkv_bwd_plain(
+                qkv, o, lse, dout, H, scale, valid), 10),
+            "library_ms": time_ms(sdpa_fwd_bwd) - time_ms(sdpa),
+            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6,
+        })
+    emit({"phase": "flash_attention_bwd", "cases": cases})
+    return cases
+
+
+def ffn_bwd_phase(peaks, dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for name, E, Ct, d, Hd in (("experts", 16, 2568, 384, 384),
+                               ("dense_mlp", 1, 8200, 384, 1536)):
+        r = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
+        h = r(E, Ct, d).bfloat16()
+        w1 = (r(E, Hd, d) * d ** -0.5).bfloat16()
+        w2 = (r(E, d, Hd) * 0.5 * Hd ** -0.5).bfloat16()
+        b1 = r(E, Hd) * 0.1
+        gy = r(E, Ct, d).bfloat16()
+        got = expert_ffn_bwd(h, w1, b1, w2, gy)
+        ref = expert_ffn_bwd_plain(h, w1, b1, w2, gy)
+        errs = {k: check_grads(a, b, f"expert_ffn_bwd {name} {k}")
+                for k, a, b in zip(("dh", "dw1", "db1", "dw2", "db2"), got,
+                                   ref)}
+        b1h = b1.bfloat16()[:, None]
+
+        def yardstick():   # recompute, then bmm for dh, dw1 and dw2
+            a_pre = torch.baddbmm(b1h, h, w1.transpose(1, 2)).float()
+            cdf = 0.5 * (1.0 + torch.erf(a_pre * 0.5 ** 0.5))
+            a = (a_pre * cdf).bfloat16()
+            dgelu = cdf + a_pre * torch.exp(-0.5 * a_pre * a_pre) * (
+                2.0 * np.pi) ** -0.5
+            da = (torch.bmm(gy, w2).float() * dgelu).bfloat16()
+            return (torch.bmm(da, w1), torch.bmm(da.transpose(1, 2), h),
+                    torch.bmm(gy.transpose(1, 2), a), da.float().sum(1),
+                    gy.float().sum(1))
+
+        flops = 10.0 * E * Ct * d * Hd
+        nbytes = (2.0 * 3 * E * Ct * d + 2.0 * 2 * E * d * Hd
+                  + 4.0 * 2 * E * d * Hd + 4.0 * 2 * E * Hd + 4.0 * E * d)
+        b_ms, b_by = bound(flops, nbytes, peaks)
+        cases.append({
+            "shape": f"{name}: h [{E},{Ct},{d}] x hidden {Hd} bf16",
+            **errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "ms": time_ms(lambda: expert_ffn_bwd(h, w1, b1, w2, gy)),
+            "plain_ms": time_ms(
+                lambda: expert_ffn_bwd_plain(h, w1, b1, w2, gy), 10),
+            "library_ms": None,
+            "yardstick_bmm_backward_ms": time_ms(yardstick),
+            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6,
+        })
+    emit({"phase": "expert_ffn_bwd", "cases": cases})
     return cases
 
 
@@ -262,6 +421,253 @@ def serving_phase(dev):
     return launches
 
 
+PARAM_GROUPS = (("attention", ".attn."), ("dense_mlp", ".mlp.fc"),
+                ("experts", ".mlp.experts."), ("gates", ".mlp.gate."),
+                ("heads", "decoders."))
+
+
+def param_group(name: str) -> str:
+    return next((g for g, key in PARAM_GROUPS if key in name),
+                "embed_and_norms")
+
+
+class RoutingTape:
+    """Records every gate's top-(k+1) experts during one forward and
+    replays them, in call order, during another, so that two forwards whose
+    roundings differ route every token alike.  Replayed gate values are the
+    replaying forward's own softmax probabilities at the recorded experts,
+    so the gates stay differentiable.  Counts the tokens whose own top-k set
+    differs from the recording.  Installed in place of the MoE block's gate
+    function; for this script's comparisons only."""
+
+    def __init__(self):
+        self.tape, self.replaying, self.pos = [], False, 0
+        self.tokens = self.rerouted = 0
+
+    def __enter__(self):
+        vit_moe.noisy_vmoe_gate = self.gate
+        self.pos = 0
+        return self
+
+    def __exit__(self, *exc):
+        vit_moe.noisy_vmoe_gate = noisy_vmoe_gate
+        if not exc[0] and self.replaying and self.pos != len(self.tape):
+            raise RuntimeError(f"replayed {self.pos} of {len(self.tape)} "
+                               "gate calls")
+        self.replaying = True
+
+    def gate(self, gate_inp, w_gate, *, top_k, noise_std=1.0, noise=None):
+        out = noisy_vmoe_gate(gate_inp, w_gate, top_k=top_k,
+                              noise_std=noise_std, noise=noise)
+        probs = torch.softmax(out.noisy_logits, dim=-1)
+        if not self.replaying:
+            self.tape.append(small_topk(probs.detach(),
+                                        out.top_logits.shape[1])[1])
+            return out
+        idx = self.tape[self.pos]
+        self.pos += 1
+        own = out.top_k_indices.sort(dim=-1).values
+        self.rerouted += int((own != idx[:, :top_k].sort(dim=-1).values)
+                             .any(dim=-1).sum())
+        self.tokens += idx.shape[0]
+        top = probs.gather(1, idx)
+        return out._replace(top_k_indices=idx[:, :top_k],
+                            top_k_gates=top[:, :top_k], top_logits=top)
+
+
+def expected_train_launches(depth: int, num_tasks: int):
+    """Launches per shared-prefix train step (vit_moe.py:1064-1091): block
+    0 and block 1's attention once, the rest once per task; even blocks
+    dense, odd blocks MoE; each forward launch has one backward launch."""
+    attn = 2 + (depth - 2) * num_tasks
+    ffn = 1 + ((depth + 1) // 2 - 1) * num_tasks + depth // 2 * num_tasks
+    return {"flash_attention_fwd": attn, "flash_attention_bwd": attn,
+            "expert_ffn_fwd": ffn, "expert_ffn_bwd": ffn}
+
+
+def train_phase(dev):
+    t0 = time.perf_counter()
+    model, tasks = build_flagship(device=dev, seed=0, shared_prefix=True)
+    names = [t.name for t in tasks]
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
+                            tasks, TRAIN_BATCH, (IMG, IMG))
+    loss_fns = {n: loss_fn_for_task(n, {"edge_w": 0.95}) for n in names}
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    build_s = time.perf_counter() - t0
+
+    # (a) kernels against the plain path on the same weights, batch and
+    # gate noise, the plain path replaying the kernel path's routing
+    # (RoutingTape): the train step (also with each path routing on its
+    # own, and against an f32 plain reference), the step without the
+    # normals term (its L1 gradient is a sign), that with the heads'
+    # BatchNorm on running statistics, and the backbone alone under a fixed
+    # random cotangent on its output tokens (the check on the gradients)
+    cotangent = torch.randn((len(names) * TRAIN_BATCH,) + tuple(
+        model.backbone.pos_embed.shape[1:]), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(3))
+    smooth_weights = {**LOSS_WEIGHTS, "normals": 0.0}
+
+    def run(m, kernels: bool, tape=None, mode: str = "step"):
+        """One forward and backward from `init` in training mode; mode
+        "step" is the train step's loss, "smooth" the same without the
+        normals term, "smooth_bn_running" that with the heads in eval mode
+        (BatchNorm on running statistics), "backbone" the backbone alone
+        under `cotangent`.
+        Returns (loss, parameter grads, {"dpred": grads of the heads'
+        outputs, "dfeat": grad of the backbone's output tokens, "l1_sign":
+        sign of the normals L1 term per element}) ({} for "backbone")."""
+        m.load_state_dict(init)
+        set_use_kernels(m, kernels)
+        m.train()
+        if mode == "smooth_bn_running":
+            for head in m.decoders.values():
+                head.eval()
+        m.zero_grad(set_to_none=True)
+        noise = torch.Generator(device=dev).manual_seed(1)
+        feats, extra, loss = [], {}, float("nan")
+        hook = m.backbone.register_forward_hook(
+            lambda mod, args, out: feats.append(out[0]))
+        with tape or contextlib.nullcontext():
+            if mode == "backbone":
+                m.backbone(batch["image"], list(range(len(names))), noise,
+                           shared_prefix=True)[0].float().backward(cotangent)
+            else:
+                pred, cv, _ = m(batch["image"], noise=noise)
+                for v in (*pred.values(), feats[0]):
+                    v.retain_grad()
+                total = multi_task_loss(
+                    pred, batch, names, loss_fns,
+                    LOSS_WEIGHTS if mode == "step" else smooth_weights
+                )["total"] + 0.01 * cv
+                total.backward()
+                loss = total.item()
+                nrm = pred["normals"].detach()
+                extra = {"dpred": {k: v.grad for k, v in pred.items()},
+                         "dfeat": feats[0].grad, "l1_sign": torch.sign(
+                             nrm / (nrm.norm(dim=1, keepdim=True) + 1e-12)
+                             - batch["normals"])}
+        hook.remove()
+        return loss, {n: p.grad.detach().float().clone()
+                      for n, p in m.named_parameters()
+                      if p.grad is not None}, extra
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def rel_by_group(a, b):
+        sq = {}
+        for n, ga in a.items():
+            acc = sq.setdefault(param_group(n), [0.0, 0.0])
+            acc[0] += (ga - b[n]).square().sum().item()
+            acc[1] += b[n].square().sum().item()
+        return {g: (x / y) ** 0.5 for g, (x, y) in sq.items()}
+
+    def compare(k, p):
+        """Readings of a kernel run `k` against a plain run `p`."""
+        out = {"grad_rel_err": rel_by_group(k[1], p[1])}
+        if k[2]:
+            valid = batch["normals"] != 255
+            out.update(
+                backbone_output_grad_rel_err=rel(k[2]["dfeat"], p[2]["dfeat"]),
+                heads_output_grad_rel_err={n: rel(k[2]["dpred"][n],
+                                                  p[2]["dpred"][n])
+                                           for n in names
+                                           if bool(p[2]["dpred"][n].any())},
+                normals_l1_sign_flip_frac=(
+                    (k[2]["l1_sign"] != p[2]["l1_sign"]) & valid).sum().item()
+                / valid.sum().item())
+        return out
+
+    tapes = {mode: RoutingTape() for mode in ("step", "smooth",
+                                              "smooth_bn_running", "backbone")}
+    kernel_runs = {mode: run(model, True, tapes[mode], mode) for mode in tapes}
+    before = dict(_build.launches)
+    p_own = run(model, False)
+    own_routing = compare(kernel_runs["step"], p_own)
+    p_loss = p_own[0]
+    del p_own
+    readings = {}
+    for mode in ("smooth", "smooth_bn_running", "backbone", "step"):
+        # "step" last: its plain run is kept for the f32 comparison
+        p_run = run(model, False, tapes[mode], mode)
+        readings[mode] = compare(kernel_runs[mode], p_run)
+    rerouted = {"plain": tapes["step"].rerouted / tapes["step"].tokens}
+    ref_model, _ = build_flagship(device=dev, seed=0, shared_prefix=True,
+                                  dtype=torch.float32)
+    tapes["step"].rerouted = tapes["step"].tokens = 0
+    r_loss, r_grads, _ = run(ref_model, False, tapes["step"])
+    rerouted["f32"] = tapes["step"].rerouted / tapes["step"].tokens
+    del ref_model
+    check(dict(_build.launches) == before, "plain train step launched a kernel")
+    set_use_kernels(model, True)
+    model.load_state_dict(init)
+    k_loss = kernel_runs["step"][0]
+    kr = rel_by_group(kernel_runs["step"][1], r_grads)
+    pr = rel_by_group(p_run[1], r_grads)
+    del kernel_runs, p_run, r_grads
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    backbone = readings["backbone"]["grad_rel_err"]
+    check(np.isfinite(k_loss) and loss_rel <= TRAIN_LOSS_REL_TOL
+          and all(v <= BACKBONE_GRAD_REL_TOL for v in backbone.values()),
+          f"train kernel vs plain: loss {k_loss} vs {p_loss} (rel limit "
+          f"{TRAIN_LOSS_REL_TOL}); backbone grad rel err under a fixed "
+          f"cotangent {backbone} (limit {BACKBONE_GRAD_REL_TOL})")
+    emit({"phase": "train_kernel_vs_plain", "loss_kernel": k_loss,
+          "loss_plain": p_loss, "loss_rel_err": loss_rel,
+          "loss_f32_replayed": r_loss, "step_own_routing": own_routing,
+          "step_replayed": readings["step"],
+          "step_without_normals_replayed": readings["smooth"],
+          "step_without_normals_bn_running_replayed":
+              readings["smooth_bn_running"],
+          "backbone_cotangent_replayed": readings["backbone"],
+          "step_grad_rel_err_kernel_vs_f32_replayed": kr,
+          "step_grad_rel_err_plain_vs_f32_replayed": pr,
+          "rerouted_token_frac": rerouted,
+          "gate_calls": len(tapes["step"].tape), "model_build_s": build_s})
+
+    # (b) steps on one fixed batch: the loss is finite and falls
+    opt, schedule = build_optimizer(model.parameters(), OPTIM,
+                                    steps_per_epoch=100)
+    step = make_train_step(model, names, loss_fns, LOSS_WEIGHTS, opt,
+                           schedule)
+    noise = torch.Generator(device=dev).manual_seed(2)
+    metrics = [step(batch, noise) for _ in range(TRAIN_STEPS)]
+    losses = [m["loss_total_with_cv"].item() for m in metrics]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train losses over {TRAIN_STEPS} steps do not fall: {losses}")
+    emit({"phase": "train_loss", "steps": TRAIN_STEPS, "losses": losses,
+          "last": {k: v.item() for k, v in metrics[-1].items()}})
+
+    # (c) timed steps, (d) kernel launches per step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(TIMED_STEPS)]
+    _build.reset_launches()            # the train path starts here
+    t_window = time.perf_counter()
+    for a, b in ev:
+        a.record()
+        m = step(batch, noise)
+        b.record()
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t_window
+    launches = dict(_build.launches)   # ... and ends here
+    check(bool(torch.isfinite(m["loss_total_with_cv"])), "timed step loss")
+    per_step = {k: v / TIMED_STEPS for k, v in launches.items()}
+    expected = expected_train_launches(len(model.backbone.blocks), len(names))
+    check(per_step == expected, f"train launches per step {per_step}, "
+          f"expected {expected}")
+    step_ms = [a.elapsed_time(b) for a, b in ev]
+    emit({"phase": "train_step", "batch": TRAIN_BATCH, "steps": TIMED_STEPS,
+          "step_ms_median": float(np.median(step_ms)),
+          "step_ms": step_ms,
+          "img_per_s": TIMED_STEPS * TRAIN_BATCH / window_s,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches_per_step": per_step,
+          "moe_dropped_frac": m["moe_dropped_frac"].item()})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -290,20 +696,30 @@ def main() -> int:
 
     attn = attention_phase(peaks, dev)
     ffn = ffn_phase(peaks, dev)
-    launches = serving_phase(dev)
+    attn_bwd = attention_bwd_phase(peaks, dev)
+    ffn_bwd = ffn_bwd_phase(peaks, dev)
+    serving = serving_phase(dev)
+    train = train_phase(dev)
 
     kernels = []
-    for kname, src, replaces, cases in (
-            ("flash_attention_fwd", "m3vit_tpu_torch/csrc/flash_attention_fwd.cu",
-             "m3vit_tpu/ops/flash_attention.py:103", attn),
-            ("expert_ffn_fwd", "m3vit_tpu_torch/csrc/expert_ffn_fwd.cu",
-             "m3vit_tpu/ops/expert_ffn.py:145", ffn)):
+    for kname, line, cases in (
+            ("flash_attention_fwd", "flash_attention.py:103", attn),
+            ("flash_attention_bwd", "flash_attention.py:125", attn_bwd),
+            ("expert_ffn_fwd", "expert_ffn.py:145", ffn),
+            ("expert_ffn_bwd", "expert_ffn.py:203", ffn_bwd)):
         main_case = cases[0]
-        n = launches.get(kname, 0)
-        check(n > 0, f"{kname} was not launched on the serving path")
+        n = train.get(kname, 0)
+        check(n > 0, f"{kname} was not launched on the train path")
+        by_path = {"train": n}
+        if kname in ("flash_attention_fwd", "expert_ffn_fwd"):
+            by_path["serving"] = serving.get(kname, 0)
+            check(by_path["serving"] > 0,
+                  f"{kname} was not launched on the serving path")
         kernels.append({
-            "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": n,
+            "name": kname, "route": "cuda",
+            "source": f"m3vit_tpu_torch/csrc/{kname}.cu",
+            "replaces": f"m3vit_tpu/ops/{line}", "launches": n,
+            "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},

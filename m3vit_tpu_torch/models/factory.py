@@ -1,6 +1,6 @@
-"""The flagship model: ViT-small-MoE, multi-gate, 5 PASCAL tasks, eval
-(defaults of __graft_entry__.py:build_flagship :32-81, at eval capacity
-factor 2.0)."""
+"""The flagship model: ViT-small-MoE, multi-gate, 5 PASCAL tasks
+(defaults of __graft_entry__.py:build_flagship :32-81: train capacity
+factor 1.25, eval 2.0, gate noise std 1.0)."""
 
 from __future__ import annotations
 
@@ -34,12 +34,15 @@ def init_weights(model: torch.nn.Module, gen: torch.Generator) -> None:
 def build_flagship(img: int = 512, embed: int = 384, depth: int = 12,
                    heads: int = 6, experts: int = 16, top_k: int = 4,
                    tasks: Optional[List[TaskSpec]] = None,
-                   dtype=torch.bfloat16, eval_capacity_factor: float = 2.0,
+                   dtype=torch.bfloat16, capacity_factor: float = 1.25,
+                   eval_capacity_factor: float = 2.0,
+                   vmoe_noisy_std: float = 1.0, shared_prefix: bool = False,
                    device=None, seed: int = 0,
                    **left_out) -> Tuple[MultiTaskModel, List[TaskSpec]]:
-    """ViT-small-MoE multi-gate multi-task model in eval mode, weights drawn
-    from `seed`.  Runs on CUDA unless device="cpu" is passed; raises when
-    CUDA is absent and no device was given."""
+    """ViT-small-MoE multi-gate multi-task model with f32 weights drawn
+    from `seed`, computing in `dtype`, returned in eval mode (``.train()``
+    for the train path).  Runs on CUDA unless device="cpu" is passed;
+    raises when CUDA is absent and no device was given."""
     dev = resolve_device(device)
     tasks = tasks or parse_task_dictionary("PASCALContext",
                                            PASCAL_TASK_DICT)[0]
@@ -47,8 +50,9 @@ def build_flagship(img: int = 512, embed: int = 384, depth: int = 12,
         img_size=(img, img), patch_size=16, embed_dim=embed, depth=depth,
         num_heads=heads, mlp_ratio=4.0, qkv_bias=True, moe_mlp_ratio=1.0,
         moe_experts=experts, moe_top_k=top_k, multi_gate=True,
-        num_tasks=len(tasks), eval_capacity_factor=eval_capacity_factor,
-        dtype=dtype, **left_out)
+        num_tasks=len(tasks), vmoe_noisy_std=vmoe_noisy_std,
+        capacity_factor=capacity_factor,
+        eval_capacity_factor=eval_capacity_factor, dtype=dtype, **left_out)
     decoders = {
         t.name: VisionTransformerUpHead(
             img_size=(img, img), patch_size=16, embed_dim=embed,
@@ -56,6 +60,6 @@ def build_flagship(img: int = 512, embed: int = 384, depth: int = 12,
         for t in tasks
     }
     model = MultiTaskModel(backbone, decoders, [t.name for t in tasks],
-                           multi_gate=True)
+                           multi_gate=True, shared_prefix=shared_prefix)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval(), tasks

@@ -1,11 +1,14 @@
-"""Shared encoder + per-task decoders, eval (counterpart of
+"""Shared encoder + per-task decoders, eval and train (counterpart of
 m3vit_tpu/models/multitask.py:MultiTaskModel :40-227).
 
 multi_gate: one backbone pass per task with that task's routers
-(multitask.py:199-207).  single_task runs one task's pathway only
-(multitask.py:121-127): the sparse serving path.  Outputs are NCHW,
-bilinearly resized to the input size; every forward returns
-(pred_dict, cv_loss, moe_stats) like the JAX model.
+(multitask.py:199-207), or with shared_prefix the task-independent prefix
+once and the rest per task (multitask.py:157-167).  single_task runs one
+task's pathway only (multitask.py:121-127): the sparse serving path.
+Outputs are NCHW, bilinearly resized to the input size; every forward
+returns (pred_dict, cv_loss, moe_stats) like the JAX model.  The module's
+training flag is the JAX ``train`` argument; in training the gate noise
+is drawn from ``noise``, a torch.Generator on the model's device.
 """
 
 from __future__ import annotations
@@ -16,40 +19,52 @@ import torch
 from torch import nn
 
 from m3vit_tpu_torch.models.heads import resize_bilinear
-from m3vit_tpu_torch.models.vit_moe import reject_left_out
+from m3vit_tpu_torch.models.vit_moe import add_stats, reject_left_out
 
 
 class MultiTaskModel(nn.Module):
     def __init__(self, backbone: nn.Module, decoders: Dict[str, nn.Module],
-                 tasks: List[str], multi_gate: bool = False, **left_out):
+                 tasks: List[str], multi_gate: bool = False,
+                 shared_prefix: bool = False, **left_out):
         super().__init__()
         reject_left_out(left_out)
         self.backbone = backbone
         self.decoders = nn.ModuleDict(decoders)
         self.tasks = list(tasks)
         self.multi_gate = multi_gate
+        self.shared_prefix = shared_prefix
 
-    def forward(self, x: torch.Tensor, single_task: Optional[str] = None):
+    def forward(self, x: torch.Tensor, single_task: Optional[str] = None,
+                noise: Optional[torch.Generator] = None):
         """x [B, 3, H, W] -> ({task: [B, C_task, H, W] f32}, cv, stats)."""
         out_size = tuple(x.shape[-2:])
         out: Dict[str, torch.Tensor] = {}
         if single_task is not None:
             tid = self.tasks.index(single_task) if self.multi_gate else None
-            feats, cv, stats = self.backbone(x, tid)
+            feats, cv, stats = self.backbone(x, tid, noise)
             out[single_task] = resize_bilinear(
                 self.decoders[single_task](feats), out_size)
             return out, cv, stats
         if not self.multi_gate:
-            feats, cv, stats = self.backbone(x, None)
+            feats, cv, stats = self.backbone(x, None, noise)
             for task in self.tasks:
                 out[task] = resize_bilinear(self.decoders[task](feats),
                                             out_size)
             return out, cv, stats
+        if self.shared_prefix:
+            T = len(self.tasks)
+            feats, total_cv, stats = self.backbone(
+                x, list(range(T)), noise, shared_prefix=True)
+            per_task = feats.reshape((T, x.shape[0]) + feats.shape[1:])
+            for i, task in enumerate(self.tasks):
+                out[task] = resize_bilinear(self.decoders[task](per_task[i]),
+                                            out_size)
+            return out, total_cv, stats
         total_cv = torch.zeros((), device=x.device)
         stats: Dict[str, torch.Tensor] = {}
         for i, task in enumerate(self.tasks):
-            feats, cv, st = self.backbone(x, i)
+            feats, cv, st = self.backbone(x, i, noise)
             total_cv = total_cv + cv
-            stats = st if not stats else {k: stats[k] + st[k] for k in st}
+            stats = add_stats(stats, st)
             out[task] = resize_bilinear(self.decoders[task](feats), out_size)
         return out, total_cv, stats

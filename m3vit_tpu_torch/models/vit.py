@@ -2,10 +2,10 @@
 
 Parameters are named like the torch reference model
 (``attn.qkv.weight``, ``mlp.fc1.weight``, ...), so reference state dicts and
-those made by ``utils/convert.py`` load with ``strict=True``.  Matmul weights
-live in the compute dtype (the JAX package casts its f32 weights to it at
-every use: the same values); LayerNorm parameters, the fused MLP's biases
-and everything the reference keeps in f32 stay f32.
+those made by ``utils/convert.py`` load with ``strict=True``.  Every
+parameter is f32 (the master weights an optimizer updates); each forward
+casts the matmul and conv weights to the compute dtype at use, as the JAX
+package's flax modules do (param_dtype f32, dtype bf16; vit.py:252-257).
 """
 
 from __future__ import annotations
@@ -36,6 +36,18 @@ def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         norm.bias, norm.eps)
 
 
+def linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """nn.Linear on x with its f32 weight and bias cast to `dtype`."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    """nn.Conv2d on x with its f32 weight and bias cast to `dtype`."""
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
+                    conv.stride, conv.padding)
+
+
 def set_use_kernels(model: nn.Module, flag: bool) -> None:
     """Route every kernel call site in `model` to its hand-written kernel
     (True) or to its plain PyTorch version (False).  CPU tensors always take
@@ -46,18 +58,16 @@ def set_use_kernels(model: nn.Module, flag: bool) -> None:
 
 
 class DenseParams(nn.Module):
-    """Weight [out, in] and bias [out] of a dense layer whose product runs in
-    a fused kernel (m3vit_tpu/models/vit.py:_DenseParams)."""
+    """f32 weight [out, in] and bias [out] of a dense layer whose product
+    runs in a fused kernel (m3vit_tpu/models/vit.py:_DenseParams)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 weight_dtype=torch.float32, bias_dtype=torch.float32,
                  experts: Optional[int] = None):
         super().__init__()
         lead = () if experts is None else (experts,)
         self.weight = nn.Parameter(
-            torch.zeros(lead + (out_features, in_features), dtype=weight_dtype))
-        self.bias = nn.Parameter(
-            torch.zeros(lead + (out_features,), dtype=bias_dtype))
+            torch.zeros(lead + (out_features, in_features)))
+        self.bias = nn.Parameter(torch.zeros(lead + (out_features,)))
 
 
 class PatchEmbed(nn.Module):
@@ -67,16 +77,15 @@ class PatchEmbed(nn.Module):
     def __init__(self, patch_size: int = 16, embed_dim: int = 768,
                  dtype=torch.float32):
         super().__init__()
-        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size,
-                              dtype=dtype)
+        self.dtype = dtype
+        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
 
     def init_weights(self, gen: torch.Generator) -> None:
         fill_normal(self.proj.weight, 0.02, gen)
         nn.init.zeros_(self.proj.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.proj(x.to(self.proj.weight.dtype))
-        return x.flatten(2).transpose(1, 2)
+        return conv2d(self.proj, x, self.dtype).flatten(2).transpose(1, 2)
 
 
 class Attention(nn.Module):
@@ -89,10 +98,11 @@ class Attention(nn.Module):
                  qk_scale: Optional[float] = None, dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
         self.scale = qk_scale if qk_scale is not None else \
             (dim // num_heads) ** -0.5
-        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias, dtype=dtype)
-        self.proj = nn.Linear(dim, dim, dtype=dtype)
+        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
         self.use_kernels = True
 
     def init_weights(self, gen: torch.Generator) -> None:
@@ -102,21 +112,22 @@ class Attention(nn.Module):
                 nn.init.zeros_(lin.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qkv = self.qkv(x)
+        qkv = linear(self.qkv, x, self.dtype)
         out = flash_attention_qkv(qkv, self.num_heads, self.scale,
                                   use_kernels=self.use_kernels)
-        return self.proj(out)
+        return linear(self.proj, out, self.dtype)
 
 
 class MlpBlock(nn.Module):
     """Dense transformer MLP fc1 -> exact GELU -> fc2 (vit.py:211-274),
-    always through the fused FFN (ops.fused_dense_mlp, the expert kernel at
-    E=1): the [tokens, hidden] activation never reaches device memory."""
+    always through the fused FFN (ops.fused_dense_mlp, the expert kernels at
+    E=1): the [tokens, hidden] activation never reaches device memory, in
+    the forward or the backward."""
 
-    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, hidden_dim: int):
         super().__init__()
-        self.fc1 = DenseParams(dim, hidden_dim, weight_dtype=dtype)
-        self.fc2 = DenseParams(hidden_dim, dim, weight_dtype=dtype)
+        self.fc1 = DenseParams(dim, hidden_dim)
+        self.fc2 = DenseParams(hidden_dim, dim)
         self.use_kernels = True
 
     def init_weights(self, gen: torch.Generator) -> None:
@@ -132,8 +143,9 @@ class MlpBlock(nn.Module):
 
 class DenseBlock(nn.Module):
     """Pre-norm transformer block x + attn(ln(x)); x + mlp(ln(x))
-    (vit.py:289-355, eval).  LayerNorm eps 1e-6 in f32, its output cast to
-    the compute dtype; the residual stream stays in the compute dtype."""
+    (vit.py:289-355; drop-path and dropout are not ported, the flagship's
+    rates are 0).  LayerNorm eps 1e-6 in f32, its output cast to the compute
+    dtype; the residual stream stays in the compute dtype."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
@@ -143,7 +155,7 @@ class DenseBlock(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, dtype)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = MlpBlock(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(layer_norm(self.norm1, x).to(self.dtype))

@@ -1,16 +1,21 @@
-"""MoE Vision Transformer backbone, eval path (counterpart of
+"""MoE Vision Transformer backbone, eval and train (counterpart of
 m3vit_tpu/models/vit_moe.py: MoEMlp :169-464, MoEBlock :467-636,
 VisionTransformerMoE :734-1105).
 
 Even blocks are dense, odd blocks MoE; with multi_gate each task has its
 own router (``mlp.gate.{task}.w_gate``) and a forward runs one task's
 routing.  The gate reads the bf16-rounded post-norm2 tokens cast to f32
-(vit_moe.py:230, :572), so routing matches the JAX package's.
+(vit_moe.py:230, :572), so routing matches the JAX package's.  The module's
+training flag selects the train path: the capacity factor for training,
+gate noise (drawn from the ``torch.Generator`` handed to forward) and the
+per-block cv balance loss.  ``shared_prefix`` runs block 0 and block 1's
+attention once for all tasks and the rest once per task
+(vit_moe.py:1057-1101).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -25,14 +30,18 @@ from m3vit_tpu_torch.models.vit import (
     layer_norm,
 )
 from m3vit_tpu_torch.moe.dispatch import MoEFfnParams, compute_capacity, moe_ffn
-from m3vit_tpu_torch.moe.gating import GateOutput, noisy_vmoe_gate
+from m3vit_tpu_torch.moe.gating import (
+    GateOutput,
+    moe_aux_loss,
+    noisy_vmoe_gate,
+)
 
 #: options of the JAX package this port leaves out; asking for one raises
 LEFT_OUT = (
-    "scan_blocks", "stacked_tasks", "scan_tasks", "shared_prefix",
-    "expert_prune", "regu_experts_fromtask", "sem_force", "regu_sem",
-    "regu_subimage", "expert_weights_int8", "use_pallas_ln_mlp", "distilled",
-    "gate_input_ahead",
+    "scan_blocks", "stacked_tasks", "scan_tasks", "expert_prune",
+    "regu_experts_fromtask", "sem_force", "regu_sem", "regu_subimage",
+    "expert_weights_int8", "use_pallas_ln_mlp", "distilled",
+    "gate_input_ahead", "drop_rate", "attn_drop_rate", "drop_path_rate",
 )
 
 
@@ -43,6 +52,11 @@ def reject_left_out(knobs: Dict) -> None:
         if v:
             raise NotImplementedError(
                 f"{k} is not ported to m3vit_tpu_torch (JAX package only)")
+
+
+def add_stats(acc: Dict[str, torch.Tensor], st: Dict[str, torch.Tensor]):
+    """Per-key sum of two MoE stats dicts ({} is the empty sum)."""
+    return st if not acc else {k: acc[k] + st[k] for k in st}
 
 
 class NoisyGate(nn.Module):
@@ -59,13 +73,12 @@ class NoisyGate(nn.Module):
 
 class Experts(nn.Module):
     """Expert banks in the reference FMoELinear names and [E, out, in]
-    layout: htoh4 [E, hidden, d], h4toh [E, d, hidden]; biases f32."""
+    layout: htoh4 [E, hidden, d], h4toh [E, d, hidden]; all f32."""
 
-    def __init__(self, num_experts: int, dim: int, hidden: int,
-                 dtype=torch.float32):
+    def __init__(self, num_experts: int, dim: int, hidden: int):
         super().__init__()
-        self.htoh4 = DenseParams(dim, hidden, dtype, experts=num_experts)
-        self.h4toh = DenseParams(hidden, dim, dtype, experts=num_experts)
+        self.htoh4 = DenseParams(dim, hidden, experts=num_experts)
+        self.h4toh = DenseParams(hidden, dim, experts=num_experts)
 
     def init_weights(self, gen: torch.Generator) -> None:
         for lin in (self.htoh4, self.h4toh):
@@ -80,16 +93,19 @@ class Experts(nn.Module):
 
 
 class MoEMlp(nn.Module):
-    """gate -> dispatch -> experts -> combine (vit_moe.py:169-464, eval)."""
+    """gate -> dispatch -> experts -> combine (vit_moe.py:169-464)."""
 
     def __init__(self, dim: int, num_experts: int, d_hidden: int,
                  top_k: int = 2, multi_gate: bool = False, num_tasks: int = 0,
-                 eval_capacity_factor: float = 4.0, dtype=torch.float32):
+                 vmoe_noisy_std: float = 1.0, capacity_factor: float = 2.0,
+                 eval_capacity_factor: float = 4.0):
         super().__init__()
         self.num_experts = num_experts
         self.top_k = top_k
         self.multi_gate = multi_gate
         self.num_tasks = num_tasks
+        self.vmoe_noisy_std = vmoe_noisy_std
+        self.capacity_factor = capacity_factor
         self.eval_capacity_factor = eval_capacity_factor
         if multi_gate:
             if num_tasks <= 0:
@@ -98,10 +114,11 @@ class MoEMlp(nn.Module):
                 NoisyGate(dim, num_experts) for _ in range(num_tasks))
         else:
             self.gate = NoisyGate(dim, num_experts)
-        self.experts = Experts(num_experts, dim, d_hidden, dtype)
+        self.experts = Experts(num_experts, dim, d_hidden)
         self.use_kernels = True
 
-    def forward(self, x: torch.Tensor, task_id: Optional[int]
+    def forward(self, x: torch.Tensor, task_id: Optional[int],
+                noise: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, GateOutput, Dict[str, torch.Tensor]]:
         B, N, C = x.shape
         E, K = self.num_experts, self.top_k
@@ -111,11 +128,21 @@ class MoEMlp(nn.Module):
             gate_mod = self.gate[min(max(int(task_id), 0), self.num_tasks - 1)]
         else:
             gate_mod = self.gate
+        gate_noise = None
+        if self.training and self.vmoe_noisy_std > 0:
+            if noise is None:
+                raise ValueError("training the noisy gate needs gate noise: "
+                                 "pass a torch.Generator as `noise`")
+            # the JAX package draws it with jax.random.normal (gating.py:112)
+            gate_noise = torch.randn((B * N, E), generator=noise,
+                                     device=x.device)
         gate = noisy_vmoe_gate(x.reshape(-1, C).float(), gate_mod.w_gate,
-                               top_k=K)
+                               top_k=K, noise_std=self.vmoe_noisy_std,
+                               noise=gate_noise)
         top_idx = gate.top_k_indices.reshape(B, N, K)
         top_gates = gate.top_k_gates.reshape(B, N, K)
-        cf = self.eval_capacity_factor
+        cf = self.capacity_factor if self.training else \
+            self.eval_capacity_factor
         out = moe_ffn(x, top_idx, top_gates, self.experts.ffn_params(),
                       capacity_factor=cf, use_kernels=self.use_kernels)
 
@@ -135,12 +162,15 @@ class MoEMlp(nn.Module):
 
 
 class MoEBlock(nn.Module):
-    """Transformer block with an MoE FFN (vit_moe.py:467-636, eval)."""
+    """Transformer block with an MoE FFN (vit_moe.py:467-636).  `stage`
+    "attn" runs only the attention sublayer, "moe" only the MoE sublayer
+    (the shared_prefix split, vit_moe.py:521-526)."""
 
     def __init__(self, dim: int, num_heads: int, moe_hidden_dim: int,
                  moe_experts: int = 16, moe_top_k: int = 4,
                  multi_gate: bool = False, num_tasks: int = 0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
+                 vmoe_noisy_std: float = 1.0, capacity_factor: float = 2.0,
                  eval_capacity_factor: float = 4.0, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -148,19 +178,28 @@ class MoEBlock(nn.Module):
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, dtype)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = MoEMlp(dim, moe_experts, moe_hidden_dim, moe_top_k,
-                          multi_gate, num_tasks, eval_capacity_factor, dtype)
+                          multi_gate, num_tasks, vmoe_noisy_std,
+                          capacity_factor, eval_capacity_factor)
 
-    def forward(self, x: torch.Tensor, task_id: Optional[int]):
-        x = x + self.attn(layer_norm(self.norm1, x).to(self.dtype))
+    def forward(self, x: torch.Tensor, task_id: Optional[int],
+                noise: Optional[torch.Generator] = None, stage: str = "full"):
+        """Returns (tokens, cv loss, stats); cv is 0 outside training."""
+        if stage != "moe":
+            x = x + self.attn(layer_norm(self.norm1, x).to(self.dtype))
+            if stage == "attn":
+                return x, torch.zeros((), device=x.device), {}
         h = layer_norm(self.norm2, x).to(self.dtype)
-        moe_out, _, stats = self.mlp(h, task_id)
-        return x + moe_out, stats
+        moe_out, gate, stats = self.mlp(h, task_id, noise)
+        cv = moe_aux_loss(gate, self.mlp.top_k, self.mlp.num_experts,
+                          self.training)
+        return x + moe_out, cv, stats
 
 
 class VisionTransformerMoE(nn.Module):
     """MoE ViT backbone: even blocks dense, odd blocks MoE
-    (vit_moe.py:734-1105, eval).  Takes images [B, 3, H, W]; returns
-    (tokens [B, 1+N, C], cv loss (0 in eval), stats summed over blocks)."""
+    (vit_moe.py:734-1105).  Takes images [B, 3, H, W]; returns
+    (tokens [B, 1+N, C], cv loss summed over blocks, stats summed over
+    blocks)."""
 
     def __init__(self, img_size=(512, 512), patch_size: int = 16,
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
@@ -168,6 +207,7 @@ class VisionTransformerMoE(nn.Module):
                  qk_scale: Optional[float] = None, moe_mlp_ratio: float = -1.0,
                  moe_experts: int = 16, moe_top_k: int = 4,
                  multi_gate: bool = False, num_tasks: int = 0,
+                 vmoe_noisy_std: float = 1.0, capacity_factor: float = 2.0,
                  eval_capacity_factor: float = 4.0, dtype=torch.float32,
                  **left_out):
         super().__init__()
@@ -185,23 +225,57 @@ class VisionTransformerMoE(nn.Module):
                        dtype) if i % 2 == 0 else
             MoEBlock(embed_dim, num_heads, moe_hidden, moe_experts, moe_top_k,
                      multi_gate, num_tasks, qkv_bias, qk_scale,
-                     eval_capacity_factor, dtype)
+                     vmoe_noisy_std, capacity_factor, eval_capacity_factor,
+                     dtype)
             for i in range(depth))
 
     def init_weights(self, gen: torch.Generator) -> None:
         nn.init.zeros_(self.cls_token)
         fill_normal(self.pos_embed, 0.02, gen)
 
-    def forward(self, x: torch.Tensor, task_id: Optional[int] = None):
+    def _run_blocks(self, tokens, task_id, start: int, start_stage: str,
+                    noise):
+        total_cv = torch.zeros((), device=tokens.device)
+        stats: Dict[str, torch.Tensor] = {}
+        for i in range(start, len(self.blocks)):
+            blk = self.blocks[i]
+            if isinstance(blk, MoEBlock):
+                stage = start_stage if i == start else "full"
+                tokens, cv, st = blk(tokens, task_id, noise, stage)
+                total_cv = total_cv + cv
+                stats = add_stats(stats, st)
+            else:
+                tokens = blk(tokens)
+        return tokens, total_cv, stats
+
+    def forward(self, x: torch.Tensor, task_id=None,
+                noise: Optional[torch.Generator] = None,
+                shared_prefix: bool = False):
+        """task_id: the task whose routers route, or with shared_prefix a
+        sequence of task ids; then the prefix (patch embed, the leading
+        dense block and the first MoE block's attention) runs once and the
+        rest once per task, and the tokens come back task-major
+        [T*B, 1+N, C] (vit_moe.py:1057-1101)."""
         B = x.shape[0]
         tokens = self.patch_embed(x)
         cls = self.cls_token.to(self.dtype).expand(B, -1, -1)
         tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(self.dtype)
-        stats: Dict[str, torch.Tensor] = {}
-        for blk in self.blocks:
-            if isinstance(blk, MoEBlock):
-                tokens, st = blk(tokens, task_id)
-                stats = st if not stats else {k: stats[k] + st[k] for k in st}
-            else:
-                tokens = blk(tokens)
-        return tokens, torch.zeros((), device=x.device), stats
+        if not shared_prefix:
+            return self._run_blocks(tokens, task_id, 0, "full", noise)
+        task_ids: Sequence[int] = task_id
+        n_prefix = 0
+        while n_prefix < len(self.blocks) and n_prefix % 2 == 0:
+            tokens = self.blocks[n_prefix](tokens)
+            n_prefix += 1
+        start_stage = "full"
+        if n_prefix < len(self.blocks):
+            tokens, _, _ = self.blocks[n_prefix](tokens, None, None, "attn")
+            start_stage = "moe"
+        feats, total_cv, stats = [], torch.zeros((), device=x.device), {}
+        for tid in task_ids:
+            f, cv, st = self._run_blocks(tokens, tid, n_prefix, start_stage,
+                                         noise)
+            feats.append(f)
+            total_cv = total_cv + cv
+            stats = add_stats(stats, st)
+        return torch.cat(feats, dim=0), total_cv, stats

@@ -1,1 +1,1 @@
-"""Mixture-of-experts gating and dispatch (forward)."""
+"""Mixture-of-experts gating (with its balance loss) and dispatch."""

@@ -1,9 +1,10 @@
-"""Static-capacity MoE dispatch / expert FFN / combine, single device, forward.
+"""Static-capacity MoE dispatch / expert FFN / combine, single device.
 
 Counterpart of m3vit_tpu/moe/dispatch.py: a sort-derived dispatch plan
 (stable sort by expert id; per-expert slots are contiguous runs of the
-sorted order), dispatch and combine as row gathers, and the per-expert FFN
-through the fused kernel (ops/expert_ffn.py).  Slot assignment is bitwise
+sorted order), dispatch and combine as row gathers whose backwards are row
+gathers too (autograd Functions, as the JAX custom_vjps), and the
+per-expert FFN through the fused kernels (ops/expert_ffn.py).  Slot assignment is bitwise
 the JAX package's: over-capacity slots drop in slot order t*K+k, and ids
 >= E count as dropped before they take capacity.
 """
@@ -101,19 +102,69 @@ def make_dispatch_plan(flat_e: torch.Tensor, num_experts: int, capacity: int,
     return DispatchPlan(src_flat=src_flat, w_slot=w_slot, dst=dst)
 
 
-def dispatch_gather(x: torch.Tensor, src_tok: torch.Tensor) -> torch.Tensor:
+def _pad_row(x: torch.Tensor) -> torch.Tensor:
+    """x [R, d] with one zero row appended (the target of empty indices)."""
+    return torch.cat([x, x.new_zeros(1, x.shape[1])])
+
+
+class _DispatchGather(torch.autograd.Function):
+    """h[slot] = x[src_tok[slot]]; the backward gathers the slot gradients
+    back through dst and sums each token's K slots in f32
+    (dispatch.py:220-244).  No scatter, so no atomics: deterministic."""
+
+    @staticmethod
+    def forward(ctx, x, src_tok, dst):
+        ctx.save_for_backward(dst)
+        ctx.num_tokens = x.shape[0]
+        return _pad_row(x)[src_tok]
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        T = ctx.num_tokens
+        gk = _pad_row(g)[dst.reshape(T, -1)]                 # [T, K, d]
+        return gk.sum(dim=1, dtype=torch.float32).to(g.dtype), None, None
+
+
+class _CombineGather(torch.autograd.Function):
+    """out[t] = sum_k scores[t, k] * y[dst[t, k]] in f32; the backward is
+    two row gathers (dispatch.py:247-297): grad_y[slot] = w_slot[slot] *
+    g[src_tok[slot]] at y's dtype, grad_scores[t, k] = sum_d y[dst[t, k]]
+    g[t] in f32."""
+
+    @staticmethod
+    def forward(ctx, y, scores, dst, src_tok, w_slot):
+        T, K = scores.shape
+        ctx.save_for_backward(y, dst, src_tok, w_slot)
+        ys = _pad_row(y)[dst].reshape(T, K, -1)
+        return (scores.float()[..., None] * ys.float()).sum(dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, dst, src_tok, w_slot = ctx.saved_tensors
+        T = g.shape[0]
+        gc = g.to(y.dtype)
+        grad_y = w_slot.to(y.dtype)[:, None] * _pad_row(gc)[src_tok]
+        ys = _pad_row(y)[dst].reshape(T, -1, y.shape[1])
+        grad_scores = (ys.float() * gc.float()[:, None]).sum(-1)
+        return grad_y, grad_scores, None, None, None
+
+
+def dispatch_gather(x: torch.Tensor, src_tok: torch.Tensor,
+                    dst: torch.Tensor) -> torch.Tensor:
     """h[slot] = x[src_tok[slot]], 0 for empty slots (src_tok == T)
-    (dispatch.py:221-228).  x [T, d] -> [E*C, d]."""
-    return torch.cat([x, x.new_zeros(1, x.shape[1])])[src_tok]
+    (dispatch.py:221-228).  x [T, d] -> [E*C, d]; dst (the plan's inverse
+    map) carries the backward."""
+    return _DispatchGather.apply(x, src_tok, dst)
 
 
-def combine_gather(y: torch.Tensor, scores: torch.Tensor,
-                   dst: torch.Tensor) -> torch.Tensor:
+def combine_gather(y: torch.Tensor, scores: torch.Tensor, dst: torch.Tensor,
+                   src_tok: torch.Tensor, w_slot: torch.Tensor
+                   ) -> torch.Tensor:
     """out[t] = sum_k scores[t, k] * y[dst[t, k]] in f32; dropped slots
-    (dst == E*C) contribute 0 (dispatch.py:248-267).  Returns f32 [T, d]."""
-    T, K = scores.shape
-    ys = torch.cat([y, y.new_zeros(1, y.shape[1])])[dst].reshape(T, K, -1)
-    return (scores.float()[..., None] * ys.float()).sum(dim=1)
+    (dst == E*C) contribute 0 (dispatch.py:248-267).  Returns f32 [T, d];
+    src_tok and w_slot (the plan's forward map) carry the backward."""
+    return _CombineGather.apply(y, scores, dst, src_tok, w_slot)
 
 
 def expert_ffn_dense(h: torch.Tensor, params: MoEFfnParams,
@@ -128,7 +179,8 @@ def moe_ffn_local(x: torch.Tensor, top_k_indices: torch.Tensor,
                   top_k_gates: torch.Tensor, params: MoEFfnParams, *,
                   capacity: int, use_kernels: bool = True) -> torch.Tensor:
     """Single-shard MoE FFN: gather-dispatch -> per-expert FFN -> combine
-    (dispatch.py:367-412).  The FFN runs in x's dtype."""
+    (dispatch.py:367-412).  The FFN runs in x's dtype; differentiable in x,
+    top_k_gates and the expert weights."""
     T, d = x.shape
     K = top_k_indices.shape[-1]
     E = params.w1.shape[0]
@@ -136,10 +188,11 @@ def moe_ffn_local(x: torch.Tensor, top_k_indices: torch.Tensor,
     plan = make_dispatch_plan(top_k_indices.reshape(-1), E, capacity,
                               scores.reshape(-1))
     src_tok = torch.div(plan.src_flat, K, rounding_mode="floor")
-    h = dispatch_gather(x, src_tok).reshape(E, capacity, d)
+    h = dispatch_gather(x, src_tok, plan.dst).reshape(E, capacity, d)
     y = fused_expert_ffn(h, params.w1, params.b1, params.w2, params.b2,
                          use_kernels=use_kernels)
-    out = combine_gather(y.reshape(E * capacity, d), scores, plan.dst)
+    out = combine_gather(y.reshape(E * capacity, d), scores, plan.dst,
+                         src_tok, plan.w_slot)
     return out.to(x.dtype)
 
 

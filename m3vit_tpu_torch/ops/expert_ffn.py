@@ -1,17 +1,26 @@
-"""Fused per-expert FFN forward, out = gelu(h @ w1^T + b1) @ w2^T + b2 (K3).
+"""Fused per-expert FFN, out = gelu(h @ w1^T + b1) @ w2^T + b2: forward (K3)
+and backward (K4).
 
-Counterpart of ``m3vit_tpu/ops/expert_ffn.py`` (``fused_expert_ffn`` :309,
-``_ffn_forward`` :158, ``_ffn_kernel`` :145, ``fused_dense_mlp`` :50 and the
-``make_pallas_ffn_fn`` hook :400).  Weights take the torch layout
-[E, out, in]: w1 [E, H, d], w2 [E, d, H] (the JAX package keeps [E, in, out]).
-On a CUDA tensor ``fused_expert_ffn`` launches the hand-written kernel in
-``csrc/expert_ffn_fwd.cu``; on a CPU tensor, or with ``use_kernels=False``,
-it runs ``fused_expert_ffn_plain``.  A shape the kernel does not take raises.
+Counterpart of ``m3vit_tpu/ops/expert_ffn.py`` (``fused_expert_ffn`` :309
+and its ``custom_vjp`` :314-331, ``_ffn_forward`` :158, ``_ffn_kernel`` :145,
+``_gelu_and_grad`` :196, ``_ffn_bwd_kernel`` :203, ``_ffn_backward`` :254,
+``fused_dense_mlp`` :50 and the ``make_pallas_ffn_fn`` hook :400).  Weights
+take the torch layout [E, out, in]: w1 [E, H, d], w2 [E, d, H] (the JAX
+package keeps [E, in, out]).  ``fused_expert_ffn`` is a
+``torch.autograd.Function``: on a CUDA tensor its forward launches
+``csrc/expert_ffn_fwd.cu`` and its backward ``csrc/expert_ffn_bwd.cu``; on a
+CPU tensor, or with ``use_kernels=False``, both run the plain versions here.
+A shape the kernels do not take raises.
+
+The Function takes the f32 master weights and casts them to h's dtype for
+the products; its weight gradients stay f32 up to the parameters (the JAX
+package rounds them to bf16 at the cast, expert_ffn.py:327-328).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -19,8 +28,10 @@ import torch.nn.functional as F
 from m3vit_tpu_torch.ops import _build
 
 NAME = "expert_ffn_fwd"
+BWD_NAME = "expert_ffn_bwd"
 MODEL_DIMS = (128, 384)
 HIDDEN_QUANTUM = 64
+BWD_TOKEN_TILE = 32      # tokens per step of the backward's weight-grad loop
 
 
 def fused_expert_ffn_plain(h, w1, b1, w2, b2) -> torch.Tensor:
@@ -33,16 +44,60 @@ def fused_expert_ffn_plain(h, w1, b1, w2, b2) -> torch.Tensor:
     return o.to(h.dtype)
 
 
+def expert_ffn_bwd_plain(h, w1, b1, w2, g):
+    """Plain backward with the TPU kernel's numerics (_ffn_bwd_kernel
+    :203-251, exact erf): a_pre = h w1^T + b1 in f32 (remat), a = gelu(a_pre)
+    rounded to h's dtype, da = (g w2) gelu'(a_pre) rounded to h's dtype;
+    dh = da w1, dw1 = da^T h, db1 = sum(da) (unrounded), dw2 = g^T a,
+    db2 = sum(g).  Returns dh in h's dtype and the weight grads in f32."""
+    cd = h.dtype
+    hf, gf = h.float(), g.to(cd).float()
+    a_pre = torch.bmm(hf, w1.float().transpose(1, 2)) + b1.float()[:, None]
+    cdf = 0.5 * (1.0 + torch.erf(a_pre * (0.5 ** 0.5)))
+    pdf = torch.exp(-0.5 * a_pre * a_pre) / math.sqrt(2.0 * math.pi)
+    a = (a_pre * cdf).to(cd).float()
+    da_f = torch.bmm(gf, w2.float()) * (cdf + a_pre * pdf)
+    da = da_f.to(cd).float()
+    dh = torch.bmm(da, w1.float()).to(cd)
+    dw1 = torch.bmm(da.transpose(1, 2), hf)
+    dw2 = torch.bmm(gf.transpose(1, 2), a)
+    return dh, dw1, da_f.sum(1), dw2, gf.sum(1)
+
+
+class _FusedFFN(torch.autograd.Function):
+    """Forward K3 (or plain), backward K4 (or plain), as the JAX custom_vjp
+    :314-331; the hidden activation is recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, h, w1, b1, w2, b2, use_kernels):
+        kernels = h.is_cuda and use_kernels
+        w1c = w1.to(h.dtype).contiguous()
+        w2c = w2.to(h.dtype).contiguous()
+        fwd = expert_ffn_fwd if kernels else fused_expert_ffn_plain
+        out = fwd(h, w1c, b1, w2c, b2)
+        ctx.save_for_backward(h, w1c, b1, w2c)
+        ctx.kernels = kernels
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w1c, b1, w2c = ctx.saved_tensors
+        bwd = expert_ffn_bwd if ctx.kernels else expert_ffn_bwd_plain
+        dh, dw1, db1, dw2, db2 = bwd(h, w1c, b1, w2c,
+                                     g.to(h.dtype).contiguous())
+        return dh, dw1, db1, dw2, db2, None
+
+
 def fused_expert_ffn(h, w1, b1, w2, b2, *, use_kernels: bool = True):
     """Per-expert FFN over h [E, C, d]; w1 [E, H, d], b1 [E, H],
-    w2 [E, d, H], b2 [E, d].  Returns [E, C, d] in h's dtype."""
-    if h.is_cuda and use_kernels:
-        return expert_ffn_fwd(h, w1, b1, w2, b2)
-    return fused_expert_ffn_plain(h, w1, b1, w2, b2)
+    w2 [E, d, H], b2 [E, d] (any float dtype: cast to h's for the
+    products).  Returns [E, C, d] in h's dtype, differentiable in all
+    five."""
+    return _FusedFFN.apply(h, w1, b1, w2, b2, use_kernels)
 
 
 def fused_dense_mlp(x, w1, b1, w2, b2, *, use_kernels: bool = True):
-    """Tokenwise MLP on [..., d] through the expert kernel at E=1;
+    """Tokenwise MLP on [..., d] through the expert kernels at E=1;
     w1 [H, d], w2 [d, H] (nn.Linear layout)."""
     h = x.reshape(1, -1, x.shape[-1])
     out = fused_expert_ffn(h, w1[None], b1[None], w2[None], b2[None],
@@ -50,34 +105,41 @@ def fused_dense_mlp(x, w1, b1, w2, b2, *, use_kernels: bool = True):
     return out.reshape(x.shape)
 
 
+def _check(name, h, tensors):
+    """Raises on what the kernels do not take; returns (E, Ct, d, Hd)."""
+    if not h.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors")
+    E, Ct, d = h.shape
+    Hd = tensors["w1"].shape[1]
+    expect = {"w1": (E, Hd, d), "b1": (E, Hd), "w2": (E, d, Hd),
+              "b2": (E, d), "g": (E, Ct, d)}
+    for key, t in tensors.items():
+        if tuple(t.shape) != expect[key]:
+            raise ValueError(f"{name}: {key} shape {tuple(t.shape)}, expected"
+                             f" {expect[key]} for h {tuple(h.shape)}")
+        if t.device != h.device:
+            raise ValueError(f"{name}: {key} on {t.device}, h on {h.device}")
+    bf = [h] + [tensors[k] for k in ("w1", "w2", "g") if k in tensors]
+    if any(t.dtype != torch.bfloat16 for t in bf):
+        raise ValueError(f"{name} takes bf16 h/w1/w2/g, got "
+                         f"{[t.dtype for t in bf]}")
+    if d not in MODEL_DIMS or Hd % HIDDEN_QUANTUM:
+        raise ValueError(f"{name}: h {tuple(h.shape)} x hidden {Hd} "
+                         f"unsupported (d in {MODEL_DIMS}, hidden a multiple "
+                         f"of {HIDDEN_QUANTUM})")
+    for t in bf:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: h/w1/w2/g must be contiguous and "
+                             "16-byte aligned")
+    return E, Ct, d, Hd
+
+
 def expert_ffn_fwd(h, w1, b1, w2, b2) -> torch.Tensor:
     """Launches the CUDA kernel; raises on a tensor or shape it does not
     take.  Biases are read in f32 (cast here when given otherwise)."""
-    if not h.is_cuda:
-        raise ValueError("expert_ffn_fwd needs CUDA tensors")
-    E, Ct, d = h.shape
-    Hd = w1.shape[1]
-    expect = {"w1": (E, Hd, d), "b1": (E, Hd), "w2": (E, d, Hd), "b2": (E, d)}
-    for name, t in zip(expect, (w1, b1, w2, b2)):
-        if tuple(t.shape) != expect[name]:
-            raise ValueError(f"expert_ffn_fwd: {name} shape {tuple(t.shape)},"
-                             f" expected {expect[name]} for h {tuple(h.shape)}")
-        if t.device != h.device:
-            raise ValueError(f"expert_ffn_fwd: {name} on {t.device}, h on "
-                             f"{h.device}")
-    if h.dtype != torch.bfloat16 or w1.dtype != h.dtype or w2.dtype != h.dtype:
-        raise ValueError(f"expert_ffn_fwd takes bf16 h/w1/w2, got {h.dtype}/"
-                         f"{w1.dtype}/{w2.dtype}")
-    if d not in MODEL_DIMS or Hd % HIDDEN_QUANTUM:
-        raise ValueError(f"expert_ffn_fwd: h {tuple(h.shape)} x hidden {Hd} "
-                         f"unsupported (d in {MODEL_DIMS}, hidden a multiple "
-                         f"of {HIDDEN_QUANTUM})")
+    E, Ct, d, Hd = _check(NAME, h, {"w1": w1, "b1": b1, "w2": w2, "b2": b2})
     b1 = b1.float().contiguous()
     b2 = b2.float().contiguous()
-    for name, t in (("h", h), ("w1", w1), ("w2", w2)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"expert_ffn_fwd: {name} must be contiguous and "
-                             "16-byte aligned")
     out = torch.empty_like(h)
     if E * Ct == 0:
         return out
@@ -92,3 +154,53 @@ def expert_ffn_fwd(h, w1, b1, w2, b2) -> torch.Tensor:
     _build.check(err, NAME, f"h {tuple(h.shape)}, hidden {Hd}")
     _build.count_launch(NAME)
     return out
+
+
+def weight_grad_splits(E: int, Ct: int, Hd: int, sms: int) -> int:
+    """Token-range splits of the backward's weight-grad pass: enough
+    (expert, hidden tile, split) blocks for two waves over `sms` SMs, each
+    split at least one token tile.  The splits' f32 partial sums are added
+    in a fixed order, so the result does not depend on scheduling."""
+    tiles = -(-Ct // BWD_TOKEN_TILE)
+    blocks = E * (Hd // HIDDEN_QUANTUM)
+    return max(1, min(tiles, -(-2 * sms // blocks)))
+
+
+def expert_ffn_bwd(h, w1, b1, w2, g):
+    """Launches the CUDA backward: returns (dh [E, C, d] bf16, dw1 [E, H, d],
+    db1 [E, H], dw2 [E, d, H], db2 [E, d] f32).  Raises on a tensor or shape
+    it does not take."""
+    E, Ct, d, Hd = _check(BWD_NAME, h, {"w1": w1, "b1": b1, "w2": w2,
+                                        "g": g})
+    b1 = b1.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=h.device)
+    dh = torch.empty_like(h)
+    dw1 = torch.empty((E, Hd, d), **f32)
+    db1 = torch.empty((E, Hd), **f32)
+    dw2 = torch.empty((E, d, Hd), **f32)
+    db2 = torch.empty((E, d), **f32)
+    if E * Ct == 0:
+        for t in (dw1, db1, dw2, db2):
+            t.zero_()
+        return dh, dw1, db1, dw2, db2
+    ks = weight_grad_splits(
+        E, Ct, Hd, torch.cuda.get_device_properties(h.device)
+        .multi_processor_count)
+    # per-split f32 partials, summed by the kernel's last pass; with one
+    # split the weight-grad pass writes the outputs directly
+    parts = (dw1, db1, dw2, db2) if ks == 1 else tuple(
+        torch.empty((ks,) + tuple(t.shape), **f32)
+        for t in (dw1, db1, dw2, db2))
+    fn = _build.library(BWD_NAME).expert_ffn_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(h.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                 g.data_ptr(), dh.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+                 dw2.data_ptr(), db2.data_ptr(),
+                 *(p.data_ptr() for p in parts), E, Ct, d, Hd, ks, stream)
+    _build.check(err, BWD_NAME, f"h {tuple(h.shape)}, hidden {Hd}")
+    _build.count_launch(BWD_NAME)
+    return dh, dw1, db1, dw2, db2

@@ -67,7 +67,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_left_out_options_raise():
-    for knob in ("scan_blocks", "stacked_tasks", "shared_prefix",
-                 "expert_weights_int8"):
+    for knob in ("scan_blocks", "stacked_tasks", "expert_weights_int8",
+                 "drop_path_rate"):
         with pytest.raises(NotImplementedError, match=knob):
             build_flagship(device="cpu", **SMALL, **{knob: True})
+    # ported since the training slice: builds, and a zero rate is accepted
+    model, _ = build_flagship(device="cpu", shared_prefix=True,
+                              drop_path_rate=0.0, **SMALL)
+    assert model.shared_prefix

@@ -9,18 +9,42 @@ has only the port's dependencies:
 Inputs are bf16 at the flagship's shapes (or cut to a few thousand rows);
 tolerances are the JAX package's bf16 ones (tests/test_flash_attention.py:53)
 plus a relative bound for the FFN, whose outputs are sums of hundreds of
-bf16 products.
+bf16 products.  The backward kernels round p, dS and da to bf16 before
+their products, as the plain versions do, but from f32 values summed in
+another order, so single roundings may differ by one bf16 step: their
+gradients are held to 1e-2 relative Frobenius error and to a max abs error
+of 2e-2 of the reference's largest magnitude.
 """
 
 import pytest
 import torch
 
 from m3vit_tpu_torch.ops import _build
-from m3vit_tpu_torch.ops.expert_ffn import fused_expert_ffn, fused_expert_ffn_plain
+from m3vit_tpu_torch.ops.expert_ffn import (
+    expert_ffn_bwd,
+    expert_ffn_bwd_plain,
+    fused_expert_ffn,
+    fused_expert_ffn_plain,
+)
 from m3vit_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd,
+    flash_attention_fwd,
     flash_attention_qkv,
+    flash_attention_qkv_bwd_plain,
     flash_attention_qkv_plain,
 )
+
+GRAD_REL_TOL, GRAD_ABS_FRAC = 1e-2, 2e-2
+
+
+def _assert_grad_close(got, ref, what):
+    diff = got.float() - ref.float()
+    rel = (diff.norm() / ref.float().norm().clamp(min=1e-30)).item()
+    err = diff.abs().max().item()
+    scale = max(1.0, ref.float().abs().max().item())
+    assert bool(torch.isfinite(got).all()), what
+    assert rel <= GRAD_REL_TOL and err <= GRAD_ABS_FRAC * scale, \
+        f"{what}: rel {rel}, max abs {err} (ref max {scale})"
 
 
 @pytest.fixture
@@ -59,3 +83,67 @@ def test_ffn_kernel_matches_plain(cuda, E, C, d, H):
     diff = (got.float() - ref.float())
     assert diff.abs().max().item() <= 2e-2
     assert (diff.norm() / ref.float().norm()).item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,valid", [(32, None), (64, None), (64, 1000),
+                                     (128, 77)])
+def test_flash_bwd_kernel_matches_plain(cuda, d, valid):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    H, N, C = 384 // d, 1025, 384
+    qkv = torch.randn(2, N, 3 * C, device=cuda, generator=g).bfloat16()
+    dout = torch.randn(2, N, C, device=cuda, generator=g).bfloat16()
+    o, lse = flash_attention_fwd(qkv, H, d ** -0.5, valid)
+    before = _build.launches.get("flash_attention_bwd", 0)
+    got = flash_attention_bwd(qkv, o, lse, dout, H, d ** -0.5, valid)
+    ref = flash_attention_qkv_bwd_plain(qkv, o, lse, dout, H, d ** -0.5,
+                                        valid)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_attention_bwd"] == before + 1
+    for i, name in enumerate("qkv"):
+        sl = slice(i * C, (i + 1) * C)
+        _assert_grad_close(got[..., sl], ref[..., sl], f"d{name}")
+    if valid is not None:   # masked keys get no gradient
+        assert got[:, valid:, C:].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,H", [(16, 520, 384, 384), (1, 1000, 384, 1536),
+                                     (3, 77, 128, 256)])
+def test_ffn_bwd_kernel_matches_plain(cuda, E, C, d, H):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
+    h = r(E, C, d).bfloat16()
+    w1, w2 = (r(E, H, d) * d ** -0.5).bfloat16(), (r(E, d, H) * 0.5 * H ** -0.5).bfloat16()
+    b1 = r(E, H) * 0.1
+    gy = r(E, C, d).bfloat16()
+    before = _build.launches.get("expert_ffn_bwd", 0)
+    got = expert_ffn_bwd(h, w1, b1, w2, gy)
+    ref = expert_ffn_bwd_plain(h, w1, b1, w2, gy)
+    torch.cuda.synchronize()
+    assert _build.launches["expert_ffn_bwd"] == before + 1
+    assert got[0].dtype == torch.bfloat16
+    assert all(t.dtype == torch.float32 for t in got[1:])
+    for name, a, b in zip(("dh", "dw1", "db1", "dw2", "db2"), got, ref):
+        _assert_grad_close(a, b, name)
+
+
+@pytest.mark.cuda
+def test_autograd_functions_launch_the_backward_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(2, 130, 3 * 128, device=cuda,
+                      generator=g).bfloat16().requires_grad_()
+    w1 = torch.randn(4, 256, 128, device=cuda, generator=g).mul_(0.05)
+    w1.requires_grad_()
+    before = dict(_build.launches)
+    out = flash_attention_qkv(qkv, 2, 0.125)
+    y = fused_expert_ffn(out.reshape(2, 130, 128)[:, :128].reshape(4, 64, 128)
+                         .contiguous(), w1, torch.zeros(4, 256, device=cuda),
+                         w1.transpose(1, 2), torch.zeros(4, 128, device=cuda))
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd", "flash_attention_bwd",
+                 "expert_ffn_fwd", "expert_ffn_bwd"):
+        assert _build.launches[name] == before.get(name, 0) + 1, name
+    assert qkv.grad.dtype == torch.bfloat16 and w1.grad.dtype == torch.float32
+    assert bool(torch.isfinite(qkv.grad).all() and torch.isfinite(w1.grad).all())
