@@ -4,19 +4,28 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from m3vit_tpu_torch/csrc (K1/K2 flash
-attention forward/backward, K3/K4 fused FFN forward/backward), holds each
-against its plain PyTorch version at the flagship's shapes and times them.
-Then it serves the flagship model (ViT-small-MoE, 512x512, 5 PASCAL tasks,
-seeded random weights) through InferenceSession at buckets 1/2/4/8 plus one
-5-task eval, and trains it (B=8 synthetic batches, shared prefix, train
-capacity factor 1.25, SGD): one step with kernels against one with the
-plain path on the same weights, batch and gate noise (the plain path also
-replaying the kernel path's routing, whole and for the backbone alone under
-a fixed cotangent), then steps that must lower the loss, timed, with the
-kernels' launches counted per step.  Each phase prints one JSON line; the
-line before the last is nvidia-smi's card name and power limit, and the
-last line is {"ok": true, "device": {...}}.  Any failed check exits
-non-zero before that line; without CUDA the script exits non-zero at once.
+attention forward/backward, K3/K4 fused FFN forward/backward, K5/K6 fused
+LayerNorm + MLP + residual forward/backward, K7 int8-weight FFN forward),
+holds each against its plain PyTorch version at the flagship's shapes and
+times them.  Then it drives the flagship model (ViT-small-MoE, 512x512, 5
+PASCAL tasks, seeded random weights) along each of its paths, the kernels'
+launch counts set to 0 just before each path and read just after:
+- serving: InferenceSession at buckets 1/2/4/8 plus one 5-task eval;
+- training (B=8 synthetic batches, shared prefix, train capacity factor
+  1.25, SGD): one step with kernels against one with the plain path on the
+  same weights, batch and gate noise (the plain path also replaying the
+  kernel path's routing, whole and for the backbone alone under a fixed
+  cotangent), then steps that must lower the loss, timed, with the
+  kernels' launches counted per step;
+- int8 serving: the flagship's expert banks quantized by the port's own
+  quantizer and served at buckets 1/2/4/8, held against its plain path;
+- ln_mlp: the flagship with the fused dense sublayer, served at bucket 8
+  with one 5-task eval and trained, each held against the unfused model on
+  the same weights, with timed steps.
+Each phase prints one JSON line; the line before the last is nvidia-smi's
+card name and power limit, and the last line is {"ok": true, "device":
+{...}}.  Any failed check exits non-zero before that line; without CUDA the
+script exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -42,10 +51,13 @@ from m3vit_tpu_torch.models import vit_moe  # noqa: E402
 from m3vit_tpu_torch.moe.gating import noisy_vmoe_gate, small_topk  # noqa: E402
 from m3vit_tpu_torch.ops import _build  # noqa: E402
 from m3vit_tpu_torch.ops.expert_ffn import (  # noqa: E402
+    dequantize_weight,
     expert_ffn_bwd,
     expert_ffn_bwd_plain,
     expert_ffn_fwd,
+    expert_ffn_q_fwd,
     fused_expert_ffn_plain,
+    quantized_expert_ffn_plain,
 )
 from m3vit_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd,
@@ -53,7 +65,17 @@ from m3vit_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_qkv_bwd_plain,
     flash_attention_qkv_plain,
 )
+from m3vit_tpu_torch.ops.ln_mlp import (  # noqa: E402
+    ln_mlp_bwd,
+    ln_mlp_fwd,
+    ln_mlp_residual_bwd_plain,
+    ln_mlp_residual_plain,
+)
 from m3vit_tpu_torch.serve import InferenceSession  # noqa: E402
+from m3vit_tpu_torch.serve.quantize import (  # noqa: E402
+    quantize_expert_state_dict,
+    quantize_weight,
+)
 from m3vit_tpu_torch.train.optim import build_optimizer  # noqa: E402
 from m3vit_tpu_torch.train.step import make_train_step  # noqa: E402
 
@@ -76,6 +98,7 @@ GRAD_REL_TOL, GRAD_ABS_FRAC = 1e-2, 2e-2
 # at most 0.0094 per group)
 TRAIN_LOSS_REL_TOL, BACKBONE_GRAD_REL_TOL = 1e-4, 2e-2
 TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 8, 10, 10
+LN_MLP_REQUESTS = 100    # timed bucket-8 requests of the ln_mlp serving path
 LOSS_WEIGHTS = {"semseg": 1.0, "human_parts": 2.0, "sal": 5.0, "edge": 50.0,
                 "normals": 10.0}
 # bench.py:316-322: SGD, lr 0.002, momentum 0.9, wd 1e-4, poly over 100
@@ -329,6 +352,190 @@ def ffn_bwd_phase(peaks, dev):
     return cases
 
 
+def ffn_q_phase(peaks, dev):
+    """K7 at the int8 serving path's expert shapes: bucket 8 and bucket 1
+    at the eval capacity factor 2.0."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    cases = []
+    for name, E, Ct, d, Hd in (("bucket_8", 16, 4104, 384, 384),
+                               ("bucket_1", 16, 520, 384, 384)):
+        r = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
+        h = r(E, Ct, d).bfloat16()
+        q1, s1 = quantize_weight(r(E, Hd, d) * d ** -0.5)
+        q2, s2 = quantize_weight(r(E, d, Hd) * 0.5 * Hd ** -0.5)
+        b1, b2 = r(E, Hd) * 0.1, r(E, d) * 0.1
+        args = (h, q1, s1, b1, q2, s2, b2)
+        got = expert_ffn_q_fwd(*args)
+        ref = quantized_expert_ffn_plain(*args)
+        diff = got.float() - ref.float()
+        err = diff.abs().max().item()
+        rel = (diff.norm() / ref.float().norm()).item()
+        check(err <= FFN_ABS_TOL and rel <= FFN_REL_TOL
+              and bool(torch.isfinite(got).all()),
+              f"expert_ffn_q_fwd {name}: max abs err {err}, rel {rel}")
+        b1h, b2h = b1.bfloat16()[:, None], b2.bfloat16()[:, None]
+
+        def yardstick():   # dequantize -> bmm -> GELU -> bmm
+            w1 = dequantize_weight(q1, s1).bfloat16()
+            w2 = dequantize_weight(q2, s2).bfloat16()
+            a = F.gelu(torch.baddbmm(b1h, h, w1.transpose(1, 2)))
+            return torch.baddbmm(b2h, a, w2.transpose(1, 2))
+
+        flops = 4.0 * E * Ct * d * Hd
+        nbytes = (2.0 * 2 * E * Ct * d + 1.0 * 2 * E * d * Hd
+                  + 4.0 * 2 * E * (Hd + d))
+        b_ms, b_by = bound(flops, nbytes, peaks)
+        cases.append({
+            "shape": f"{name}: h [{E},{Ct},{d}] bf16 x hidden {Hd}, int8 "
+                     "weights",
+            "max_abs_err": err, "rel_err": rel,
+            "ms": time_ms(lambda: expert_ffn_q_fwd(*args)),
+            "plain_ms": time_ms(lambda: quantized_expert_ffn_plain(*args), 20),
+            "library_ms": None,
+            "yardstick_dequant_bmm_gelu_bmm_ms": time_ms(yardstick),
+            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6,
+        })
+    emit({"phase": "expert_ffn_q_fwd", "cases": cases})
+    return cases
+
+
+def ln_mlp_inputs(dev, seed: int, S: int = 8200, d: int = 384,
+                  H: int = 1536):
+    """The dense blocks' sublayer at B=8 (8200 tokens): x and gr bf16,
+    gamma/beta/b1/b2 f32, w1 [H, d] and w2 [d, H] bf16."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
+    return (r(S, d).bfloat16(), 1.0 + 0.1 * r(d), 0.1 * r(d),
+            (r(H, d) * d ** -0.5).bfloat16(), r(H) * 0.1,
+            (r(d, H) * 0.5 * H ** -0.5).bfloat16(), r(d) * 0.1,
+            r(S, d).bfloat16())
+
+
+def library_ln_mlp(x, gamma, beta, w1, b1, w2, b2):
+    """The yardstick: F.layer_norm -> F.linear -> F.gelu -> F.linear -> add
+    in bf16 (never called by the port)."""
+    h = F.layer_norm(x, x.shape[-1:], gamma.bfloat16(), beta.bfloat16(), 1e-6)
+    return x + F.linear(F.gelu(F.linear(h, w1, b1.bfloat16())), w2,
+                        b2.bfloat16())
+
+
+def ln_mlp_fwd_phase(peaks, dev):
+    """K5 at the dense blocks' shape."""
+    x, gamma, beta, w1, b1, w2, b2, _ = ln_mlp_inputs(dev, 5)
+    args = (x, gamma, beta, w1, b1, w2, b2)
+    S, d = x.shape
+    H = w1.shape[0]
+    got = ln_mlp_fwd(*args)
+    ref = ln_mlp_residual_plain(*args)
+    diff = got.float() - ref.float()
+    err = diff.abs().max().item()
+    rel = (diff.norm() / ref.float().norm()).item()
+    check(err <= FFN_ABS_TOL and rel <= FFN_REL_TOL
+          and bool(torch.isfinite(got).all()),
+          f"ln_mlp_fwd: max abs err {err}, rel {rel}")
+    flops = 4.0 * S * d * H
+    nbytes = 2.0 * 2 * S * d + 2.0 * 2 * d * H + 4.0 * (3 * d + H)
+    b_ms, b_by = bound(flops, nbytes, peaks)
+    cases = [{
+        "shape": f"x [{S},{d}] bf16 x hidden {H}",
+        "max_abs_err": err, "rel_err": rel,
+        "ms": time_ms(lambda: ln_mlp_fwd(*args)),
+        "plain_ms": time_ms(lambda: ln_mlp_residual_plain(*args), 20),
+        "library_ms": None,
+        "yardstick_layer_norm_linear_gelu_linear_add_ms":
+            time_ms(lambda: library_ln_mlp(*args)),
+        "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+        "mbytes": nbytes / 1e6,
+    }]
+    emit({"phase": "ln_mlp_fwd", "cases": cases})
+    return cases
+
+
+def ln_mlp_bwd_phase(peaks, dev):
+    """K6 at the dense blocks' shape."""
+    x, gamma, beta, w1, b1, w2, b2, gr = ln_mlp_inputs(dev, 6)
+    args = (x, gamma, beta, w1, b1, w2, gr)
+    S, d = x.shape
+    H = w1.shape[0]
+    got = ln_mlp_bwd(*args)
+    ref = ln_mlp_residual_bwd_plain(*args)
+    errs = {k: check_grads(a, b, f"ln_mlp_bwd {k}")
+            for k, a, b in zip(("dx", "dgamma", "dbeta", "dw1", "db1", "dw2",
+                                "db2"), got, ref)}
+    # the yardstick's autograd backward, its graph built once
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, gamma, beta, w1, b1, w2, b2)]
+    out = library_ln_mlp(*leaves)
+    flops = 10.0 * S * d * H
+    nbytes = (2.0 * 3 * S * d + 2.0 * 2 * d * H + 4.0 * 2 * d * H
+              + 4.0 * (2 * d + H) + 4.0 * (3 * d + H))
+    b_ms, b_by = bound(flops, nbytes, peaks)
+    cases = [{
+        "shape": f"x [{S},{d}] bf16 x hidden {H}", **errs,
+        "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+        "ms": time_ms(lambda: ln_mlp_bwd(*args)),
+        "plain_ms": time_ms(lambda: ln_mlp_residual_bwd_plain(*args), 10),
+        "library_ms": None,
+        "yardstick_autograd_backward_ms": time_ms(
+            lambda: torch.autograd.grad(out, leaves, gr, retain_graph=True)),
+        "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+        "mbytes": nbytes / 1e6,
+    }]
+    emit({"phase": "ln_mlp_bwd", "cases": cases})
+    return cases
+
+
+def time_requests(sess, x, post: bool, n: int):
+    """One untimed and `n` timed semseg requests of the batch `x` (numpy);
+    checks the last output and returns its latency row."""
+    b = x.shape[0]
+    out = sess.predict(x, "semseg", postprocess=post)
+    lats = []
+    t_window = time.perf_counter()
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = sess.predict(x, "semseg", postprocess=post)
+        lats.append((time.perf_counter() - t0) * 1e3)
+    window_s = time.perf_counter() - t_window
+    if post:
+        check(out.shape == (b, IMG, IMG) and out.dtype == np.uint8
+              and int(out.max()) < 21,
+              f"bucket {b} class map {out.shape} {out.dtype}")
+    else:
+        check(out.shape == (b, IMG, IMG, 21)
+              and bool(np.isfinite(out).all()),
+              f"bucket {b} logits {out.shape} finite")
+    # img/s over the whole window: every image over all the time
+    return {"requests": n, "p50_ms": float(np.percentile(lats, 50)),
+            "p99_ms": float(np.percentile(lats, 99)), "max_ms": max(lats),
+            "img_per_s": b * n / window_s}
+
+
+def time_eval(model, x, tasks):
+    """One untimed and EVAL_REPS timed 5-task eval passes of `x`; checks
+    the outputs and returns (ms per pass, last outputs, last stats)."""
+    with torch.inference_mode():
+        model(x)
+        t0 = time.perf_counter()
+        for _ in range(EVAL_REPS):
+            out, _, stats = model(x)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) / EVAL_REPS * 1e3
+    check(set(out) == {t.name for t in tasks} and all(
+        v.shape == (x.shape[0], t.num_output, IMG, IMG)
+        and bool(torch.isfinite(v).all())
+        for t in tasks for v in [out[t.name]]), "5-task eval outputs")
+    return eval_ms, out, stats
+
+
+def logit_agreement(a, b):
+    """(class-map agreement, relative logit error) of logits a against
+    b, NHWC numpy."""
+    return (float((a.argmax(-1) == b.argmax(-1)).mean()),
+            float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+
+
 def serving_phase(dev):
     t0 = time.perf_counter()
     model, tasks = build_flagship(device=dev, seed=0)
@@ -355,43 +562,13 @@ def serving_phase(dev):
         row = {"bucket": b}
         for kind, s, x, post in (("f32_logits", sess, imgs, False),
                                  ("uint8_post", raw, u8, True)):
-            out = s.predict(x, "semseg", postprocess=post)
-            lats = []
-            t_window = time.perf_counter()
-            for _ in range(REQUESTS):
-                t0 = time.perf_counter()
-                out = s.predict(x, "semseg", postprocess=post)
-                lats.append((time.perf_counter() - t0) * 1e3)
-            window_s = time.perf_counter() - t_window
+            row[kind] = time_requests(s, x, post, REQUESTS)
             requests += REQUESTS + 1
-            if post:
-                check(out.shape == (b, IMG, IMG) and out.dtype == np.uint8
-                      and int(out.max()) < 21,
-                      f"bucket {b} class map {out.shape} {out.dtype}")
-            else:
-                check(out.shape == (b, IMG, IMG, 21)
-                      and bool(np.isfinite(out).all()),
-                      f"bucket {b} logits {out.shape} finite")
-            # img/s over the whole window: every image over all the time
-            row[kind] = {"requests": REQUESTS,
-                         "p50_ms": float(np.percentile(lats, 50)),
-                         "p99_ms": float(np.percentile(lats, 99)),
-                         "max_ms": max(lats),
-                         "img_per_s": b * REQUESTS / window_s}
         emit({"phase": "serving", **row})
 
     x = torch.randn(8, 3, IMG, IMG, device=dev).contiguous(
         memory_format=torch.channels_last)
-    with torch.inference_mode():
-        model(x)
-        t0 = time.perf_counter()
-        for _ in range(EVAL_REPS):
-            out, _, stats = model(x)
-        torch.cuda.synchronize()
-        eval_ms = (time.perf_counter() - t0) / EVAL_REPS * 1e3
-    check(set(out) == set(names) and all(
-        v.shape == (8, t.num_output, IMG, IMG) and bool(torch.isfinite(v).all())
-        for t in tasks for v in [out[t.name]]), "5-task eval outputs")
+    eval_ms, out, stats = time_eval(model, x, tasks)
     launches = dict(_build.launches)   # ... and ends here
     emit({"phase": "eval_5task", "batch": 8, "ms": eval_ms,
           "img_per_s": 8 / eval_ms * 1e3,
@@ -400,7 +577,10 @@ def serving_phase(dev):
     passes = requests + 5 * (1 + EVAL_REPS)   # single-task requests + task passes
     emit({"phase": "launches", "launches": launches,
           "backbone_passes": passes,
-          "per_pass": {k: v / passes for k, v in launches.items()}})
+          "per_pass": check_launches(
+              launches, passes,
+              expected_serving_launches(len(model.backbone.blocks)),
+              "serving")})
 
     # the same weights through the plain PyTorch versions, at bucket 2
     imgs = rng.randn(2, IMG, IMG, 3).astype(np.float32)
@@ -410,9 +590,7 @@ def serving_phase(dev):
     p_logits = sess.predict(imgs, "semseg")
     set_use_kernels(model, True)
     check(dict(_build.launches) == before, "plain run launched a kernel")
-    agree = float((k_logits.argmax(-1) == p_logits.argmax(-1)).mean())
-    rel = float(np.linalg.norm(k_logits - p_logits)
-                / np.linalg.norm(p_logits))
+    agree, rel = logit_agreement(k_logits, p_logits)
     check(agree >= AGREE_MIN and rel <= LOGIT_REL_TOL,
           f"kernel vs plain at bucket 2: class agreement {agree}, "
           f"logit rel err {rel}")
@@ -475,36 +653,82 @@ class RoutingTape:
                             top_k_gates=top[:, :top_k], top_logits=top)
 
 
-def expected_train_launches(depth: int, num_tasks: int):
+def expected_train_launches(depth: int, num_tasks: int,
+                            ln_mlp: bool = False):
     """Launches per shared-prefix train step (vit_moe.py:1064-1091): block
     0 and block 1's attention once, the rest once per task; even blocks
-    dense, odd blocks MoE; each forward launch has one backward launch."""
+    dense (K3/K4 at E=1, or K5/K6 with ln_mlp), odd blocks MoE; each
+    forward launch has one backward launch."""
     attn = 2 + (depth - 2) * num_tasks
-    ffn = 1 + ((depth + 1) // 2 - 1) * num_tasks + depth // 2 * num_tasks
-    return {"flash_attention_fwd": attn, "flash_attention_bwd": attn,
-            "expert_ffn_fwd": ffn, "expert_ffn_bwd": ffn}
+    dense = 1 + ((depth + 1) // 2 - 1) * num_tasks
+    moe = depth // 2 * num_tasks
+    out = {"flash_attention_fwd": attn, "flash_attention_bwd": attn}
+    if ln_mlp:
+        out.update(expert_ffn_fwd=moe, expert_ffn_bwd=moe, ln_mlp_fwd=dense,
+                   ln_mlp_bwd=dense)
+    else:
+        out.update(expert_ffn_fwd=dense + moe, expert_ffn_bwd=dense + moe)
+    return out
 
 
-def train_phase(dev):
-    t0 = time.perf_counter()
-    model, tasks = build_flagship(device=dev, seed=0, shared_prefix=True)
+def expected_serving_launches(depth: int, ln_mlp: bool = False,
+                              int8: bool = False):
+    """Launches per single-task backbone pass: one attention per block,
+    one dense MLP per even block, one expert FFN per odd block."""
+    dense, moe = (depth + 1) // 2, depth // 2
+    out = {"flash_attention_fwd": depth}
+    if ln_mlp:
+        out.update(ln_mlp_fwd=dense, expert_ffn_fwd=moe)
+    elif int8:
+        out.update(expert_ffn_fwd=dense, expert_ffn_q_fwd=moe)
+    else:
+        out.update(expert_ffn_fwd=dense + moe)
+    return out
+
+
+def check_launches(launches, count: int, expected, what: str):
+    """Per-pass (or per-step) launches over `count` passes: exactly
+    `expected`, every other kernel not at all."""
+    per = {k: v / count for k, v in launches.items() if v}
+    check(per == expected, f"{what}: launches per pass/step {per}, expected "
+          f"{expected}")
+    return per
+
+
+def rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def rel_by_group(a, b):
+    """Relative error of gradient dict a against b per parameter group."""
+    sq = {}
+    for n, ga in a.items():
+        acc = sq.setdefault(param_group(n), [0.0, 0.0])
+        acc[0] += (ga - b[n]).square().sum().item()
+        acc[1] += b[n].square().sum().item()
+    return {g: (x / y) ** 0.5 for g, (x, y) in sq.items()}
+
+
+def train_setup(dev, **knobs):
+    """The shared-prefix flagship (seed 0, `knobs` passed to
+    build_flagship), its B=8 synthetic batch, loss functions, a copy of
+    its initial state and the random cotangent for backbone runs."""
+    model, tasks = build_flagship(device=dev, seed=0, shared_prefix=True,
+                                  **knobs)
     names = [t.name for t in tasks]
     batch = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
                             tasks, TRAIN_BATCH, (IMG, IMG))
     loss_fns = {n: loss_fn_for_task(n, {"edge_w": 0.95}) for n in names}
     init = {k: v.clone() for k, v in model.state_dict().items()}
-    build_s = time.perf_counter() - t0
-
-    # (a) kernels against the plain path on the same weights, batch and
-    # gate noise, the plain path replaying the kernel path's routing
-    # (RoutingTape): the train step (also with each path routing on its
-    # own, and against an f32 plain reference), the step without the
-    # normals term (its L1 gradient is a sign), that with the heads'
-    # BatchNorm on running statistics, and the backbone alone under a fixed
-    # random cotangent on its output tokens (the check on the gradients)
     cotangent = torch.randn((len(names) * TRAIN_BATCH,) + tuple(
         model.backbone.pos_embed.shape[1:]), device=dev,
         generator=torch.Generator(device=dev).manual_seed(3))
+    return model, names, batch, loss_fns, init, cotangent
+
+
+def make_grad_run(dev, names, batch, loss_fns, init, cotangent):
+    """run(m, kernels, tape, mode): one forward and backward of model `m`
+    from the state `init` (see below)."""
     smooth_weights = {**LOSS_WEIGHTS, "normals": 0.0}
 
     def run(m, kernels: bool, tape=None, mode: str = "step"):
@@ -551,16 +775,58 @@ def train_phase(dev):
                       for n, p in m.named_parameters()
                       if p.grad is not None}, extra
 
-    def rel(a, b):
-        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+    return run
 
-    def rel_by_group(a, b):
-        sq = {}
-        for n, ga in a.items():
-            acc = sq.setdefault(param_group(n), [0.0, 0.0])
-            acc[0] += (ga - b[n]).square().sum().item()
-            acc[1] += b[n].square().sum().item()
-        return {g: (x / y) ** 0.5 for g, (x, y) in sq.items()}
+
+def timed_steps(model, names, loss_fns, batch, dev, expected, what: str):
+    """TIMED_STEPS train steps on one batch, each between CUDA events, with
+    the kernels' launches counted over them and held to `expected` per
+    step; returns (the phase's readings, the launches)."""
+    opt, schedule = build_optimizer(model.parameters(), OPTIM,
+                                    steps_per_epoch=100)
+    step = make_train_step(model, names, loss_fns, LOSS_WEIGHTS, opt,
+                           schedule)
+    noise = torch.Generator(device=dev).manual_seed(2)
+    for _ in range(2):   # warm-up
+        step(batch, noise)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(TIMED_STEPS)]
+    _build.reset_launches()            # the train path starts here
+    t_window = time.perf_counter()
+    for a, b in ev:
+        a.record()
+        m = step(batch, noise)
+        b.record()
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t_window
+    launches = dict(_build.launches)   # ... and ends here
+    check(bool(torch.isfinite(m["loss_total_with_cv"])),
+          f"{what} timed step loss")
+    per_step = check_launches(launches, TIMED_STEPS, expected, what)
+    step_ms = [a.elapsed_time(b) for a, b in ev]
+    return {"batch": TRAIN_BATCH, "steps": TIMED_STEPS,
+            "step_ms_median": float(np.median(step_ms)), "step_ms": step_ms,
+            "img_per_s": TIMED_STEPS * TRAIN_BATCH / window_s,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": per_step,
+            "moe_dropped_frac": m["moe_dropped_frac"].item()}, launches
+
+
+def train_phase(dev):
+    t0 = time.perf_counter()
+    model, names, batch, loss_fns, init, cotangent = train_setup(dev)
+    build_s = time.perf_counter() - t0
+
+    # (a) kernels against the plain path on the same weights, batch and
+    # gate noise, the plain path replaying the kernel path's routing
+    # (RoutingTape): the train step (also with each path routing on its
+    # own, and against an f32 plain reference), the step without the
+    # normals term (its L1 gradient is a sign), that with the heads'
+    # BatchNorm on running statistics, and the backbone alone under a fixed
+    # random cotangent on its output tokens (the check on the gradients)
+    run = make_grad_run(dev, names, batch, loss_fns, init, cotangent)
 
     def compare(k, p):
         """Readings of a kernel run `k` against a plain run `p`."""
@@ -639,33 +905,162 @@ def train_phase(dev):
           "last": {k: v.item() for k, v in metrics[-1].items()}})
 
     # (c) timed steps, (d) kernel launches per step
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(TIMED_STEPS)]
-    _build.reset_launches()            # the train path starts here
-    t_window = time.perf_counter()
-    for a, b in ev:
-        a.record()
-        m = step(batch, noise)
-        b.record()
-    torch.cuda.synchronize()
-    window_s = time.perf_counter() - t_window
-    launches = dict(_build.launches)   # ... and ends here
-    check(bool(torch.isfinite(m["loss_total_with_cv"])), "timed step loss")
-    per_step = {k: v / TIMED_STEPS for k, v in launches.items()}
-    expected = expected_train_launches(len(model.backbone.blocks), len(names))
-    check(per_step == expected, f"train launches per step {per_step}, "
-          f"expected {expected}")
-    step_ms = [a.elapsed_time(b) for a, b in ev]
-    emit({"phase": "train_step", "batch": TRAIN_BATCH, "steps": TIMED_STEPS,
-          "step_ms_median": float(np.median(step_ms)),
-          "step_ms": step_ms,
-          "img_per_s": TIMED_STEPS * TRAIN_BATCH / window_s,
-          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "launches_per_step": per_step,
-          "moe_dropped_frac": m["moe_dropped_frac"].item()})
+    readings, launches = timed_steps(
+        model, names, loss_fns, batch, dev,
+        expected_train_launches(len(model.backbone.blocks), len(names)),
+        "train")
+    emit({"phase": "train_step", **readings})
     return launches
+
+
+def int8_serving_phase(dev):
+    """The int8 serving path (scripts/bench_serving.py --int8): the seeded
+    flagship's expert banks quantized by the port's own quantizer, served
+    uint8 in / class map out at every bucket, then held against its plain
+    path and read against the float model at bucket 2."""
+    t0 = time.perf_counter()
+    fmodel, tasks = build_flagship(device=dev, seed=0)
+    names = [t.name for t in tasks]
+    qsd, q_err = quantize_expert_state_dict(fmodel.state_dict(),
+                                            with_error=True)
+    model, _ = build_flagship(device=dev, seed=0, expert_weights_int8=True)
+    model.load_state_dict(qsd, strict=True)
+    del qsd
+    build_s = time.perf_counter() - t0
+    kw = dict(buckets=BUCKETS, device=dev)
+    raw = InferenceSession(model, names, (IMG, IMG), raw_uint8_input=True,
+                           **kw)
+    t0 = time.perf_counter()
+    raw.warmup(tasks=["semseg"], postprocess=True)
+    warmup_s = time.perf_counter() - t0
+
+    rng = np.random.RandomState(10)
+    rows, requests = [], 0
+    _build.reset_launches()            # the int8 serving path starts here
+    for b in BUCKETS:
+        u8 = rng.randint(0, 256, (b, IMG, IMG, 3)).astype(np.uint8)
+        rows.append({"bucket": b,
+                     "uint8_post": time_requests(raw, u8, True, REQUESTS)})
+        requests += REQUESTS + 1
+    launches = dict(_build.launches)   # ... and ends here
+    per_pass = check_launches(
+        launches, requests,
+        expected_serving_launches(len(model.backbone.blocks), int8=True),
+        "int8 serving")
+
+    # the int8 kernel session against the int8 plain path, and against
+    # the float model, at bucket 2 (f32 logits)
+    sess = InferenceSession(model, names, (IMG, IMG), **kw)
+    fsess = InferenceSession(fmodel, names, (IMG, IMG), **kw)
+    imgs = rng.randn(2, IMG, IMG, 3).astype(np.float32)
+    k_logits = sess.predict(imgs, "semseg")
+    before = dict(_build.launches)
+    set_use_kernels(model, False)
+    p_logits = sess.predict(imgs, "semseg")
+    set_use_kernels(model, True)
+    check(dict(_build.launches) == before, "int8 plain run launched a kernel")
+    agree, rel_err = logit_agreement(k_logits, p_logits)
+    check(agree >= AGREE_MIN and rel_err <= LOGIT_REL_TOL,
+          f"int8 kernel vs plain at bucket 2: class agreement {agree}, "
+          f"logit rel err {rel_err}")
+    f_agree, f_rel = logit_agreement(k_logits, fsess.predict(imgs, "semseg"))
+    emit({"phase": "int8_serving", "rows": rows, "model_build_s": build_s,
+          "warmup_s": warmup_s, "launches": launches,
+          "backbone_passes": requests, "per_pass": per_pass,
+          "kernel_vs_plain": {"bucket": 2, "class_map_agreement": agree,
+                              "logit_rel_err": rel_err},
+          "int8_vs_float": {"bucket": 2, "class_map_agreement": f_agree,
+                            "logit_rel_err": f_rel},
+          "expert_quantization_error": q_err,
+          "expert_buffer_mb": sum(
+              b.numel() * b.element_size() for n, b in model.named_buffers()
+              if "experts" in n) / 1e6})
+    return launches
+
+
+def ln_mlp_path_phase(dev):
+    """The ln_mlp configuration (bench.py --ln_mlp): the flagship with the
+    fused dense sublayer, served at bucket 8 with one 5-task eval and
+    trained, each held against the unfused kernel model on the same
+    weights.  Returns the launches of its serving and of its train path."""
+    model, tasks = build_flagship(device=dev, seed=0)
+    fused, _ = build_flagship(device=dev, seed=0, ln_mlp=True)
+    fused.load_state_dict(model.state_dict())
+    names = [t.name for t in tasks]
+    depth = len(model.backbone.blocks)
+    raw = InferenceSession(fused, names, (IMG, IMG), buckets=(8,),
+                           raw_uint8_input=True, device=dev)
+    raw.warmup(tasks=["semseg"], postprocess=True)
+    rng = np.random.RandomState(11)
+    u8 = rng.randint(0, 256, (8, IMG, IMG, 3)).astype(np.uint8)
+    x = torch.randn(8, 3, IMG, IMG, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    _build.reset_launches()            # the ln_mlp serving path starts here
+    row = time_requests(raw, u8, True, LN_MLP_REQUESTS)
+    eval_ms, out, _ = time_eval(fused, x, tasks)
+    serve_launches = dict(_build.launches)   # ... and ends here
+    passes = LN_MLP_REQUESTS + 1 + len(names) * (1 + EVAL_REPS)
+    per_pass = check_launches(serve_launches, passes,
+                              expected_serving_launches(depth, ln_mlp=True),
+                              "ln_mlp serving")
+    # against the unfused model: bucket 8 logits and the 5-task eval
+    imgs = rng.randn(8, IMG, IMG, 3).astype(np.float32)
+    agree, rel_err = logit_agreement(
+        InferenceSession(fused, names, (IMG, IMG), buckets=(8,),
+                         device=dev).predict(imgs, "semseg"),
+        InferenceSession(model, names, (IMG, IMG), buckets=(8,),
+                         device=dev).predict(imgs, "semseg"))
+    with torch.inference_mode():
+        ref = model(x)[0]
+    eval_rel = {n: rel(out[n], ref[n]) for n in names}
+    check(agree >= AGREE_MIN and rel_err <= LOGIT_REL_TOL
+          and all(v <= LOGIT_REL_TOL for v in eval_rel.values()),
+          f"ln_mlp vs unfused serving: bucket 8 class agreement {agree}, "
+          f"logit rel err {rel_err}; 5-task eval rel err {eval_rel}")
+    emit({"phase": "ln_mlp_serving", "bucket": 8, "uint8_post": row,
+          "eval_5task_ms": eval_ms, "eval_img_per_s": 8 / eval_ms * 1e3,
+          "launches": serve_launches, "backbone_passes": passes,
+          "per_pass": per_pass,
+          "vs_unfused": {"class_map_agreement": agree,
+                         "logit_rel_err": rel_err,
+                         "eval_5task_rel_err": eval_rel}})
+    del model, fused, raw, out, ref
+
+    # the train step against the unfused one on the same weights, batch
+    # and gate noise (loss, each routing on its own), and the backbone
+    # alone under a fixed cotangent with the unfused run replaying the
+    # fused run's routing
+    t0 = time.perf_counter()
+    fused, names, batch, loss_fns, init, cotangent = train_setup(
+        dev, ln_mlp=True)
+    model, _ = build_flagship(device=dev, seed=0, shared_prefix=True)
+    build_s = time.perf_counter() - t0
+    run = make_grad_run(dev, names, batch, loss_fns, init, cotangent)
+    step_tape, backbone_tape = RoutingTape(), RoutingTape()
+    k_loss = run(fused, True, step_tape)[0]
+    u_loss = run(model, True)[0]
+    k_bb = run(fused, True, backbone_tape, "backbone")[1]
+    u_bb = run(model, True, backbone_tape, "backbone")[1]
+    backbone = rel_by_group(k_bb, u_bb)
+    loss_rel = abs(k_loss - u_loss) / abs(u_loss)
+    check(np.isfinite(k_loss) and loss_rel <= TRAIN_LOSS_REL_TOL
+          and all(v <= BACKBONE_GRAD_REL_TOL for v in backbone.values()),
+          f"ln_mlp vs unfused train: loss {k_loss} vs {u_loss} (rel limit "
+          f"{TRAIN_LOSS_REL_TOL}); backbone grad rel err under a fixed "
+          f"cotangent {backbone} (limit {BACKBONE_GRAD_REL_TOL})")
+    emit({"phase": "ln_mlp_train_vs_unfused", "loss_ln_mlp": k_loss,
+          "loss_unfused": u_loss, "loss_rel_err": loss_rel,
+          "backbone_cotangent_replayed": {"grad_rel_err": backbone},
+          "rerouted_token_frac": backbone_tape.rerouted / backbone_tape.tokens,
+          "model_build_s": build_s})
+    del model, k_bb, u_bb
+    fused.load_state_dict(init)
+    readings, train_launches = timed_steps(
+        fused, names, loss_fns, batch, dev,
+        expected_train_launches(depth, len(names), ln_mlp=True),
+        "ln_mlp train")
+    emit({"phase": "ln_mlp_train_step", **readings})
+    return serve_launches, train_launches
 
 
 def main() -> int:
@@ -698,27 +1093,40 @@ def main() -> int:
     ffn = ffn_phase(peaks, dev)
     attn_bwd = attention_bwd_phase(peaks, dev)
     ffn_bwd = ffn_bwd_phase(peaks, dev)
-    serving = serving_phase(dev)
-    train = train_phase(dev)
+    ffn_q = ffn_q_phase(peaks, dev)
+    ln_fwd = ln_mlp_fwd_phase(peaks, dev)
+    ln_bwd = ln_mlp_bwd_phase(peaks, dev)
+    paths = {"serving": serving_phase(dev), "train": train_phase(dev),
+             "int8_serving": int8_serving_phase(dev)}
+    paths["ln_mlp_serving"], paths["ln_mlp_train"] = ln_mlp_path_phase(dev)
 
     kernels = []
-    for kname, line, cases in (
-            ("flash_attention_fwd", "flash_attention.py:103", attn),
-            ("flash_attention_bwd", "flash_attention.py:125", attn_bwd),
-            ("expert_ffn_fwd", "expert_ffn.py:145", ffn),
-            ("expert_ffn_bwd", "expert_ffn.py:203", ffn_bwd)):
+    # kernel, its TPU kernel, its phase's cases, its paths (the first is
+    # the one whose count is "launches")
+    for kname, line, cases, on in (
+            ("flash_attention_fwd", "flash_attention.py:103", attn,
+             ("train", "serving", "int8_serving", "ln_mlp_serving",
+              "ln_mlp_train")),
+            ("flash_attention_bwd", "flash_attention.py:125", attn_bwd,
+             ("train", "ln_mlp_train")),
+            ("expert_ffn_fwd", "expert_ffn.py:145", ffn,
+             ("train", "serving", "int8_serving", "ln_mlp_serving",
+              "ln_mlp_train")),
+            ("expert_ffn_bwd", "expert_ffn.py:203", ffn_bwd,
+             ("train", "ln_mlp_train")),
+            ("ln_mlp_fwd", "ln_mlp.py:129", ln_fwd,
+             ("ln_mlp_train", "ln_mlp_serving")),
+            ("ln_mlp_bwd", "ln_mlp.py:183", ln_bwd, ("ln_mlp_train",)),
+            ("expert_ffn_q_fwd", "expert_ffn.py:334", ffn_q,
+             ("int8_serving",))):
+        by_path = {p: paths[p].get(kname, 0) for p in on}
+        for p, n in by_path.items():
+            check(n > 0, f"{kname} was not launched on the {p} path")
         main_case = cases[0]
-        n = train.get(kname, 0)
-        check(n > 0, f"{kname} was not launched on the train path")
-        by_path = {"train": n}
-        if kname in ("flash_attention_fwd", "expert_ffn_fwd"):
-            by_path["serving"] = serving.get(kname, 0)
-            check(by_path["serving"] > 0,
-                  f"{kname} was not launched on the serving path")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"m3vit_tpu_torch/csrc/{kname}.cu",
-            "replaces": f"m3vit_tpu/ops/{line}", "launches": n,
+            "replaces": f"m3vit_tpu/ops/{line}", "launches": by_path[on[0]],
             "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",

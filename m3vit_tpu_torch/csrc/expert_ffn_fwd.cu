@@ -20,60 +20,17 @@
 // of 16 rows x D/2 columns), and walks Hd in 64-wide chunks: a = h w1^T
 // chunk (+ b1, GELU) goes to shared memory only, then acc += a w2^T chunk.
 // Products run through WMMA bf16 16x16x16.  No cp.async/TMA double
-// buffering and no wgmma yet: simple and right first.
+// buffering and no wgmma yet: simple and right first.  The hidden loop is
+// shared with K5 and K7 (ffn_fwd.cuh).
 //
 // The token axis is only 8-aligned (capacity 4104, 520, ...): rows past the
 // end are zero-filled on load and never stored, with no padding copy.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <cstdint>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "ffn_fwd.cuh"
 
 namespace {
 
-constexpr int BM = 64;       // tokens per CTA
-constexpr int HC = 64;       // hidden units per chunk
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr float SQRT2 = 1.41421356237309515f;
-
-template <int D>
-struct Smem {
-  static constexpr int LDH = D + 8;    // bf16 stride: token tile, w1 chunk
-  static constexpr int LDW2 = HC + 8;  // bf16 stride: w2 chunk [D, HC]
-  static constexpr int LDA = HC + 4;   // f32 stride: pre-activation chunk
-  static constexpr int LDB = HC + 8;   // bf16 stride: activation chunk
-  static constexpr int LDST = D + 4;   // f32 stride: output staging
-  static constexpr size_t h = size_t(BM) * LDH * sizeof(bf16);
-  static constexpr size_t w1 = size_t(HC) * LDH * sizeof(bf16);
-  static constexpr size_t w2 = size_t(D) * LDW2 * sizeof(bf16);
-  static constexpr size_t af = size_t(BM) * LDA * sizeof(float);
-  static constexpr size_t ab = size_t(BM) * LDB * sizeof(bf16);
-  static constexpr size_t bytes = h + w1 + w2 + af + ab;
-  // the output staging reuses the token tile and weight chunks
-  static_assert(size_t(BM) * LDST * sizeof(float) <= h + w1 + w2,
-                "staging does not fit");
-};
-
-// Copies a [rows, cols] bf16 tile (row stride `lds` in the source, `ldd` in
-// shared memory) 16 bytes per thread per step; rows >= rows_valid are zero.
-__device__ __forceinline__ void copy_tile(bf16* dst, int ldd, const bf16* src,
-                                          int64_t lds, int rows,
-                                          int rows_valid, int cols, int tid) {
-  const int cpr = cols / 8;
-  for (int i = tid; i < rows * cpr; i += THREADS) {
-    const int r = i / cpr, c = (i % cpr) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid)
-      v = *reinterpret_cast<const uint4*>(src + int64_t(r) * lds + c);
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) = v;
-  }
-}
+using namespace ffn;
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -83,91 +40,19 @@ expert_ffn_fwd_kernel(const bf16* __restrict__ hin,
                       const bf16* __restrict__ w2,
                       const float* __restrict__ b2, bf16* __restrict__ out,
                       int Ct, int Hd) {
-  using S = Smem<D>;
-  constexpr int NF = D / 32;  // output fragments per warp (16 x D/2)
+  using S = FwdSmem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Hs = reinterpret_cast<bf16*>(smem);
-  bf16* W1s = reinterpret_cast<bf16*>(smem + S::h);
-  bf16* W2s = reinterpret_cast<bf16*>(smem + S::h + S::w1);
-  float* Af = reinterpret_cast<float*>(smem + S::h + S::w1 + S::w2);
-  bf16* Ab = reinterpret_cast<bf16*>(smem + S::h + S::w1 + S::w2 + S::af);
-  float* St = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x, warp = tid / 32;
+  const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM, e = blockIdx.y;
-  const int rb = warp & 3;    // 16-row block of the tile
-  const int ch = warp >> 2;   // column half: phase 1 blocks, phase 2 output
-  const bf16* w1e = w1 + int64_t(e) * Hd * D;
-  const bf16* w2e = w2 + int64_t(e) * D * Hd;
-  const float* b1e = b1 + int64_t(e) * Hd;
 
-  copy_tile(Hs, S::LDH, hin + (int64_t(e) * Ct + m0) * D, D, BM, Ct - m0, D,
-            tid);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  for (int j0 = 0; j0 < Hd; j0 += HC) {
-    __syncthreads();  // the previous chunk's readers are done
-    copy_tile(W1s, S::LDH, w1e + int64_t(j0) * D, D, HC, HC, D, tid);
-    copy_tile(W2s, S::LDW2, w2e + j0, Hd, D, D, HC, tid);
-    __syncthreads();
-
-    // phase 1: pre-activation chunk [64, HC] = h w1[j0:j0+HC]^T
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> p0, p1;
-      wmma::fill_fragment(p0, 0.f);
-      wmma::fill_fragment(p1, 0.f);
-      const int cb = ch * 2;
-#pragma unroll 4
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b0,
-            b1f;
-        wmma::load_matrix_sync(a, Hs + rb * 16 * S::LDH + kk * 16, S::LDH);
-        wmma::load_matrix_sync(b0, W1s + (cb * 16) * S::LDH + kk * 16, S::LDH);
-        wmma::load_matrix_sync(b1f, W1s + (cb * 16 + 16) * S::LDH + kk * 16,
-                               S::LDH);
-        wmma::mma_sync(p0, a, b0, p0);
-        wmma::mma_sync(p1, a, b1f, p1);
-      }
-      wmma::store_matrix_sync(Af + rb * 16 * S::LDA + cb * 16, p0, S::LDA,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(Af + rb * 16 * S::LDA + cb * 16 + 16, p1,
-                              S::LDA, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // bias + exact GELU in f32, rounded to bf16 for the second product
-    for (int i = tid; i < BM * HC; i += THREADS) {
-      const int r = i / HC, c = i % HC;
-      const float x = Af[r * S::LDA + c] + b1e[j0 + c];
-      Ab[r * S::LDB + c] = __float2bfloat16(0.5f * x * (1.f + erff(x / SQRT2)));
-    }
-    __syncthreads();
-
-    // phase 2: acc[64, D] += a w2[:, j0:j0+HC]^T
-#pragma unroll
-    for (int kk = 0; kk < HC / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Ab + rb * 16 * S::LDB + kk * 16, S::LDB);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(
-            b, W2s + (ch * (D / 2) + f * 16) * S::LDW2 + kk * 16, S::LDW2);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
-      }
-    }
-  }
-
-  __syncthreads();  // staging overwrites the token tile and weight chunks
-#pragma unroll
-  for (int f = 0; f < NF; ++f)
-    wmma::store_matrix_sync(St + rb * 16 * S::LDST + ch * (D / 2) + f * 16,
-                            acc[f], S::LDST, wmma::mem_row_major);
-  __syncthreads();
+  copy_tile(S::tokens(smem), S::LDH, hin + (int64_t(e) * Ct + m0) * D, D, BM,
+            Ct - m0, D, tid);
+  Acc acc[D / 32];
+  hidden_loop<D>(smem, Hd, b1 + int64_t(e) * Hd,
+                 LoadWBf16<D>{w1 + int64_t(e) * Hd * D,
+                              w2 + int64_t(e) * D * Hd, Hd},
+                 acc);
+  const float* St = stage<D>(smem, acc);
 
   const float* b2e = b2 + int64_t(e) * D;
   bf16* oute = out + (int64_t(e) * Ct + m0) * D;
@@ -182,10 +67,8 @@ template <int D>
 cudaError_t launch(const void* h, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* out, int E, int Ct,
                    int Hd, cudaStream_t stream) {
-  const size_t bytes = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      expert_ffn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(bytes));
+  const size_t bytes = FwdSmem<D>::bytes;
+  cudaError_t err = allow_smem(expert_ffn_fwd_kernel<D>, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Ct + BM - 1) / BM, E);
   expert_ffn_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(

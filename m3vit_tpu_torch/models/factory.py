@@ -37,11 +37,15 @@ def build_flagship(img: int = 512, embed: int = 384, depth: int = 12,
                    dtype=torch.bfloat16, capacity_factor: float = 1.25,
                    eval_capacity_factor: float = 2.0,
                    vmoe_noisy_std: float = 1.0, shared_prefix: bool = False,
+                   expert_weights_int8: bool = False, ln_mlp: bool = False,
                    device=None, seed: int = 0,
                    **left_out) -> Tuple[MultiTaskModel, List[TaskSpec]]:
     """ViT-small-MoE multi-gate multi-task model with f32 weights drawn
     from `seed`, computing in `dtype`, returned in eval mode (``.train()``
-    for the train path).  Runs on CUDA unless device="cpu" is passed;
+    for the train path).  expert_weights_int8 builds int8 expert banks
+    (load them with ``serve.quantize.quantize_expert_state_dict``; serving
+    only); ln_mlp fuses the dense blocks' LayerNorm + MLP + residual (the
+    JAX use_pallas_ln_mlp).  Runs on CUDA unless device="cpu" is passed;
     raises when CUDA is absent and no device was given."""
     dev = resolve_device(device)
     tasks = tasks or parse_task_dictionary("PASCALContext",
@@ -52,7 +56,8 @@ def build_flagship(img: int = 512, embed: int = 384, depth: int = 12,
         moe_experts=experts, moe_top_k=top_k, multi_gate=True,
         num_tasks=len(tasks), vmoe_noisy_std=vmoe_noisy_std,
         capacity_factor=capacity_factor,
-        eval_capacity_factor=eval_capacity_factor, dtype=dtype, **left_out)
+        eval_capacity_factor=eval_capacity_factor, dtype=dtype,
+        expert_weights_int8=expert_weights_int8, ln_mlp=ln_mlp, **left_out)
     decoders = {
         t.name: VisionTransformerUpHead(
             img_size=(img, img), patch_size=16, embed_dim=embed,

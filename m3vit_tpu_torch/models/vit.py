@@ -18,6 +18,7 @@ from torch import nn
 
 from m3vit_tpu_torch.ops.expert_ffn import fused_dense_mlp
 from m3vit_tpu_torch.ops.flash_attention import flash_attention_qkv
+from m3vit_tpu_torch.ops.ln_mlp import fused_dense_ln_mlp
 
 
 @torch.no_grad()
@@ -145,13 +146,18 @@ class DenseBlock(nn.Module):
     """Pre-norm transformer block x + attn(ln(x)); x + mlp(ln(x))
     (vit.py:289-355; drop-path and dropout are not ported, the flagship's
     rates are 0).  LayerNorm eps 1e-6 in f32, its output cast to the compute
-    dtype; the residual stream stays in the compute dtype."""
+    dtype; the residual stream stays in the compute dtype.  With ln_mlp
+    (the JAX use_pallas_ln_mlp, vit.py:323-350) the second sublayer runs
+    as one fused LayerNorm + MLP + residual (ops.fused_dense_ln_mlp) on the
+    same norm2 and mlp parameters, wherever the residual stream is in the
+    compute dtype."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, ln_mlp: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.ln_mlp = ln_mlp
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, dtype)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
@@ -159,4 +165,10 @@ class DenseBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(layer_norm(self.norm1, x).to(self.dtype))
+        if self.ln_mlp and x.dtype == self.dtype:
+            fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+            return fused_dense_ln_mlp(
+                x, self.norm2.weight, self.norm2.bias, fc1.weight, fc1.bias,
+                fc2.weight, fc2.bias, eps=self.norm2.eps,
+                use_kernels=self.mlp.use_kernels)
         return x + self.mlp(layer_norm(self.norm2, x).to(self.dtype))

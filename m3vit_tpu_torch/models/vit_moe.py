@@ -11,6 +11,14 @@ gate noise (drawn from the ``torch.Generator`` handed to forward) and the
 per-block cv balance loss.  ``shared_prefix`` runs block 0 and block 1's
 attention once for all tasks and the rest once per task
 (vit_moe.py:1057-1101).
+
+``expert_weights_int8`` (vit_moe.py:201-203, :360-372) keeps the expert
+banks as int8 buffers with f32 per-out-channel scales
+(``serve/quantize.py`` makes them from a float model) and runs them through
+the quantized FFN; such a model serves only and raises in ``train()``
+mode.  ``ln_mlp`` is the JAX package's ``use_pallas_ln_mlp``: the dense
+blocks' LayerNorm + MLP + residual run as one fused sublayer
+(``ops/ln_mlp.py``) on the same parameters.
 """
 
 from __future__ import annotations
@@ -29,7 +37,12 @@ from m3vit_tpu_torch.models.vit import (
     fill_uniform,
     layer_norm,
 )
-from m3vit_tpu_torch.moe.dispatch import MoEFfnParams, compute_capacity, moe_ffn
+from m3vit_tpu_torch.moe.dispatch import (
+    MoEFfnParams,
+    MoEFfnParamsQ,
+    compute_capacity,
+    moe_ffn,
+)
 from m3vit_tpu_torch.moe.gating import (
     GateOutput,
     moe_aux_loss,
@@ -40,7 +53,7 @@ from m3vit_tpu_torch.moe.gating import (
 LEFT_OUT = (
     "scan_blocks", "stacked_tasks", "scan_tasks", "expert_prune",
     "regu_experts_fromtask", "sem_force", "regu_sem", "regu_subimage",
-    "expert_weights_int8", "use_pallas_ln_mlp", "distilled",
+    "distilled",
     "gate_input_ahead", "drop_rate", "attn_drop_rate", "drop_path_rate",
 )
 
@@ -71,25 +84,48 @@ class NoisyGate(nn.Module):
         fill_uniform(self.w_gate, self.w_gate.shape[1] ** -0.5, gen)
 
 
+class QuantDenseParams(nn.Module):
+    """An int8 expert bank: buffers ``weight_q`` [E, out, in] int8 and
+    ``weight_scale`` [E, out] f32 (one scale per out channel), and the f32
+    parameter ``bias`` [E, out] (vit_moe.py:360-372; zeros and ones until a
+    quantized state dict is loaded)."""
+
+    def __init__(self, in_features: int, out_features: int, experts: int):
+        super().__init__()
+        self.register_buffer("weight_q", torch.zeros(
+            (experts, out_features, in_features), dtype=torch.int8))
+        self.register_buffer("weight_scale",
+                             torch.ones((experts, out_features)))
+        self.bias = nn.Parameter(torch.zeros((experts, out_features)))
+
+
 class Experts(nn.Module):
     """Expert banks in the reference FMoELinear names and [E, out, in]
-    layout: htoh4 [E, hidden, d], h4toh [E, d, hidden]; all f32."""
+    layout: htoh4 [E, hidden, d], h4toh [E, d, hidden]; all f32, or with
+    int8=True int8 banks with f32 scales and biases."""
 
-    def __init__(self, num_experts: int, dim: int, hidden: int):
+    def __init__(self, num_experts: int, dim: int, hidden: int,
+                 int8: bool = False):
         super().__init__()
-        self.htoh4 = DenseParams(dim, hidden, experts=num_experts)
-        self.h4toh = DenseParams(hidden, dim, experts=num_experts)
+        self.int8 = int8
+        bank = QuantDenseParams if int8 else DenseParams
+        self.htoh4 = bank(dim, hidden, experts=num_experts)
+        self.h4toh = bank(hidden, dim, experts=num_experts)
 
     def init_weights(self, gen: torch.Generator) -> None:
         for lin in (self.htoh4, self.h4toh):
-            # FMoELinear kaiming_uniform(a=sqrt(5)) on the 3-D bank
-            fill_uniform(lin.weight, (lin.weight.shape[1]
-                                      * lin.weight.shape[2]) ** -0.5, gen)
+            if not self.int8:
+                # FMoELinear kaiming_uniform(a=sqrt(5)) on the 3-D bank
+                fill_uniform(lin.weight, (lin.weight.shape[1]
+                                          * lin.weight.shape[2]) ** -0.5, gen)
             nn.init.zeros_(lin.bias)
 
-    def ffn_params(self) -> MoEFfnParams:
-        return MoEFfnParams(self.htoh4.weight, self.htoh4.bias,
-                            self.h4toh.weight, self.h4toh.bias)
+    def ffn_params(self):
+        a, b = self.htoh4, self.h4toh
+        if self.int8:
+            return MoEFfnParamsQ(a.weight_q, a.bias, b.weight_q, b.bias,
+                                 a.weight_scale, b.weight_scale)
+        return MoEFfnParams(a.weight, a.bias, b.weight, b.bias)
 
 
 class MoEMlp(nn.Module):
@@ -98,7 +134,8 @@ class MoEMlp(nn.Module):
     def __init__(self, dim: int, num_experts: int, d_hidden: int,
                  top_k: int = 2, multi_gate: bool = False, num_tasks: int = 0,
                  vmoe_noisy_std: float = 1.0, capacity_factor: float = 2.0,
-                 eval_capacity_factor: float = 4.0):
+                 eval_capacity_factor: float = 4.0,
+                 expert_weights_int8: bool = False):
         super().__init__()
         self.num_experts = num_experts
         self.top_k = top_k
@@ -114,7 +151,8 @@ class MoEMlp(nn.Module):
                 NoisyGate(dim, num_experts) for _ in range(num_tasks))
         else:
             self.gate = NoisyGate(dim, num_experts)
-        self.experts = Experts(num_experts, dim, d_hidden)
+        self.experts = Experts(num_experts, dim, d_hidden,
+                               int8=expert_weights_int8)
         self.use_kernels = True
 
     def forward(self, x: torch.Tensor, task_id: Optional[int],
@@ -171,7 +209,8 @@ class MoEBlock(nn.Module):
                  multi_gate: bool = False, num_tasks: int = 0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
                  vmoe_noisy_std: float = 1.0, capacity_factor: float = 2.0,
-                 eval_capacity_factor: float = 4.0, dtype=torch.float32):
+                 eval_capacity_factor: float = 4.0, dtype=torch.float32,
+                 expert_weights_int8: bool = False):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
@@ -179,7 +218,8 @@ class MoEBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = MoEMlp(dim, moe_experts, moe_hidden_dim, moe_top_k,
                           multi_gate, num_tasks, vmoe_noisy_std,
-                          capacity_factor, eval_capacity_factor)
+                          capacity_factor, eval_capacity_factor,
+                          expert_weights_int8)
 
     def forward(self, x: torch.Tensor, task_id: Optional[int],
                 noise: Optional[torch.Generator] = None, stage: str = "full"):
@@ -209,10 +249,12 @@ class VisionTransformerMoE(nn.Module):
                  multi_gate: bool = False, num_tasks: int = 0,
                  vmoe_noisy_std: float = 1.0, capacity_factor: float = 2.0,
                  eval_capacity_factor: float = 4.0, dtype=torch.float32,
+                 expert_weights_int8: bool = False, ln_mlp: bool = False,
                  **left_out):
         super().__init__()
         reject_left_out(left_out)
         self.dtype = dtype
+        self.expert_weights_int8 = expert_weights_int8
         num_patches = (img_size[0] // patch_size) * (img_size[1] // patch_size)
         self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
@@ -222,16 +264,24 @@ class VisionTransformerMoE(nn.Module):
                                       else mlp_ratio))
         self.blocks = nn.ModuleList(
             DenseBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale,
-                       dtype) if i % 2 == 0 else
+                       dtype, ln_mlp) if i % 2 == 0 else
             MoEBlock(embed_dim, num_heads, moe_hidden, moe_experts, moe_top_k,
                      multi_gate, num_tasks, qkv_bias, qk_scale,
                      vmoe_noisy_std, capacity_factor, eval_capacity_factor,
-                     dtype)
+                     dtype, expert_weights_int8)
             for i in range(depth))
 
     def init_weights(self, gen: torch.Generator) -> None:
         nn.init.zeros_(self.cls_token)
         fill_normal(self.pos_embed, 0.02, gen)
+
+    def train(self, mode: bool = True):
+        if mode and self.expert_weights_int8:
+            raise RuntimeError(
+                "a model with int8 expert banks serves only: the quantized "
+                "expert FFN has no backward (build it without "
+                "expert_weights_int8 to train)")
+        return super().train(mode)
 
     def _run_blocks(self, tokens, task_id, start: int, start_stage: str,
                     noise):

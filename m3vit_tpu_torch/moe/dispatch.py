@@ -4,18 +4,25 @@ Counterpart of m3vit_tpu/moe/dispatch.py: a sort-derived dispatch plan
 (stable sort by expert id; per-expert slots are contiguous runs of the
 sorted order), dispatch and combine as row gathers whose backwards are row
 gathers too (autograd Functions, as the JAX custom_vjps), and the
-per-expert FFN through the fused kernels (ops/expert_ffn.py).  Slot assignment is bitwise
-the JAX package's: over-capacity slots drop in slot order t*K+k, and ids
->= E count as dropped before they take capacity.
+per-expert FFN through the fused kernels (ops/expert_ffn.py): K3/K4 on
+float banks, K7 on int8 banks (``MoEFfnParamsQ``, inference only).  Slot
+assignment is bitwise the JAX package's: over-capacity slots drop in slot
+order t*K+k, and ids >= E count as dropped before they take capacity.
+Expert parallelism (dispatch.py:543) is not ported.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
-from m3vit_tpu_torch.ops.expert_ffn import fused_expert_ffn, fused_expert_ffn_plain
+from m3vit_tpu_torch.ops.expert_ffn import (
+    dequantize_weight,
+    fused_expert_ffn,
+    fused_expert_ffn_plain,
+    quantized_expert_ffn,
+)
 
 
 class MoEFfnParams(NamedTuple):
@@ -32,6 +39,30 @@ class MoEFfnParams(NamedTuple):
     b1: torch.Tensor
     w2: torch.Tensor
     b2: torch.Tensor
+
+
+class MoEFfnParamsQ(NamedTuple):
+    """Weight-only int8 expert banks (serving; dispatch.py:58-71), torch
+    [out, in] layout, with symmetric per-(expert, out channel) f32 scales:
+    w = w_q * s.  Biases stay float.  Inference only.
+
+    w1: [E, d_hidden, d_model] int8,  s1: [E, d_hidden]
+    w2: [E, d_model, d_hidden] int8,  s2: [E, d_model]
+    """
+
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+    s1: torch.Tensor
+    s2: torch.Tensor
+
+
+def dequantize_ffn_params(q: MoEFfnParamsQ, dtype) -> MoEFfnParams:
+    """Float expert weights from an int8 pack, rounded to `dtype`
+    (dispatch.py:74-82; K7 dequantizes in shared memory instead)."""
+    return MoEFfnParams(w1=dequantize_weight(q.w1, q.s1).to(dtype), b1=q.b1,
+                        w2=dequantize_weight(q.w2, q.s2).to(dtype), b2=q.b2)
 
 
 def round_up(x: int, m: int) -> int:
@@ -167,20 +198,26 @@ def combine_gather(y: torch.Tensor, scores: torch.Tensor, dst: torch.Tensor,
     return _CombineGather.apply(y, scores, dst, src_tok, w_slot)
 
 
-def expert_ffn_dense(h: torch.Tensor, params: MoEFfnParams,
+def expert_ffn_dense(h: torch.Tensor,
+                     params: Union[MoEFfnParams, MoEFfnParamsQ],
                      compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain reference of the batched per-expert FFN (dispatch.py:300-342)."""
+    """Plain reference of the batched per-expert FFN (dispatch.py:300-342);
+    an int8 pack is dequantized first (dispatch.py:322)."""
     cd = compute_dtype
+    if isinstance(params, MoEFfnParamsQ):
+        params = dequantize_ffn_params(params, cd)
     return fused_expert_ffn_plain(h.to(cd), params.w1.to(cd), params.b1,
                                   params.w2.to(cd), params.b2)
 
 
 def moe_ffn_local(x: torch.Tensor, top_k_indices: torch.Tensor,
-                  top_k_gates: torch.Tensor, params: MoEFfnParams, *,
+                  top_k_gates: torch.Tensor,
+                  params: Union[MoEFfnParams, MoEFfnParamsQ], *,
                   capacity: int, use_kernels: bool = True) -> torch.Tensor:
     """Single-shard MoE FFN: gather-dispatch -> per-expert FFN -> combine
-    (dispatch.py:367-412).  The FFN runs in x's dtype; differentiable in x,
-    top_k_gates and the expert weights."""
+    (dispatch.py:367-412).  The FFN runs in x's dtype; with float banks it
+    is differentiable in x, top_k_gates and the expert weights, an int8
+    pack runs the inference-only quantized FFN."""
     T, d = x.shape
     K = top_k_indices.shape[-1]
     E = params.w1.shape[0]
@@ -189,15 +226,21 @@ def moe_ffn_local(x: torch.Tensor, top_k_indices: torch.Tensor,
                               scores.reshape(-1))
     src_tok = torch.div(plan.src_flat, K, rounding_mode="floor")
     h = dispatch_gather(x, src_tok, plan.dst).reshape(E, capacity, d)
-    y = fused_expert_ffn(h, params.w1, params.b1, params.w2, params.b2,
-                         use_kernels=use_kernels)
+    if isinstance(params, MoEFfnParamsQ):
+        y = quantized_expert_ffn(h, params.w1, params.s1, params.b1,
+                                 params.w2, params.s2, params.b2,
+                                 use_kernels=use_kernels)
+    else:
+        y = fused_expert_ffn(h, params.w1, params.b1, params.w2, params.b2,
+                             use_kernels=use_kernels)
     out = combine_gather(y.reshape(E * capacity, d), scores, plan.dst,
                          src_tok, plan.w_slot)
     return out.to(x.dtype)
 
 
 def moe_ffn(x: torch.Tensor, top_k_indices: torch.Tensor,
-            top_k_gates: torch.Tensor, params: MoEFfnParams, *,
+            top_k_gates: torch.Tensor,
+            params: Union[MoEFfnParams, MoEFfnParamsQ], *,
             capacity_factor: float = 2.0,
             use_kernels: bool = True) -> torch.Tensor:
     """MoE FFN over [B, N, d] or [T, d] on one device (the single-device

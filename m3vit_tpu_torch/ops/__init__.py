@@ -1,2 +1,2 @@
 """Hand-written Hopper kernels (``_build``, ``flash_attention``,
-``expert_ffn``), each module with its plain PyTorch version."""
+``expert_ffn``, ``ln_mlp``), each module with its plain PyTorch version."""

@@ -1,5 +1,5 @@
 """Fused per-expert FFN, out = gelu(h @ w1^T + b1) @ w2^T + b2: forward (K3)
-and backward (K4).
+and backward (K4), and the int8-weight forward (K7).
 
 Counterpart of ``m3vit_tpu/ops/expert_ffn.py`` (``fused_expert_ffn`` :309
 and its ``custom_vjp`` :314-331, ``_ffn_forward`` :158, ``_ffn_kernel`` :145,
@@ -11,6 +11,13 @@ package keeps [E, in, out]).  ``fused_expert_ffn`` is a
 ``csrc/expert_ffn_fwd.cu`` and its backward ``csrc/expert_ffn_bwd.cu``; on a
 CPU tensor, or with ``use_kernels=False``, both run the plain versions here.
 A shape the kernels do not take raises.
+
+``quantized_expert_ffn`` (``quantized_expert_ffn`` :354 and
+``_ffn_q_kernel`` :334) is the same forward on weight-only int8 banks with
+one f32 scale per (expert, out channel): ``csrc/expert_ffn_q_fwd.cu`` on a
+CUDA tensor, ``quantized_expert_ffn_plain`` on the CPU.  It is
+inference-only, as in the JAX package: it raises when autograd would
+record it.
 
 The Function takes the f32 master weights and casts them to h's dtype for
 the products; its weight gradients stay f32 up to the parameters (the JAX
@@ -29,6 +36,7 @@ from m3vit_tpu_torch.ops import _build
 
 NAME = "expert_ffn_fwd"
 BWD_NAME = "expert_ffn_bwd"
+Q_NAME = "expert_ffn_q_fwd"
 MODEL_DIMS = (128, 384)
 HIDDEN_QUANTUM = 64
 BWD_TOKEN_TILE = 32      # tokens per step of the backward's weight-grad loop
@@ -105,14 +113,15 @@ def fused_dense_mlp(x, w1, b1, w2, b2, *, use_kernels: bool = True):
     return out.reshape(x.shape)
 
 
-def _check(name, h, tensors):
-    """Raises on what the kernels do not take; returns (E, Ct, d, Hd)."""
+def _check(name, h, tensors, weight_dtype=torch.bfloat16):
+    """Raises on what the kernels do not take; returns (E, Ct, d, Hd).
+    h and g are bf16, w1 and w2 `weight_dtype`."""
     if not h.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors")
     E, Ct, d = h.shape
     Hd = tensors["w1"].shape[1]
     expect = {"w1": (E, Hd, d), "b1": (E, Hd), "w2": (E, d, Hd),
-              "b2": (E, d), "g": (E, Ct, d)}
+              "b2": (E, d), "g": (E, Ct, d), "s1": (E, Hd), "s2": (E, d)}
     for key, t in tensors.items():
         if tuple(t.shape) != expect[key]:
             raise ValueError(f"{name}: {key} shape {tuple(t.shape)}, expected"
@@ -120,8 +129,10 @@ def _check(name, h, tensors):
         if t.device != h.device:
             raise ValueError(f"{name}: {key} on {t.device}, h on {h.device}")
     bf = [h] + [tensors[k] for k in ("w1", "w2", "g") if k in tensors]
-    if any(t.dtype != torch.bfloat16 for t in bf):
-        raise ValueError(f"{name} takes bf16 h/w1/w2/g, got "
+    want = [torch.bfloat16] + [weight_dtype if k != "g" else torch.bfloat16
+                               for k in ("w1", "w2", "g") if k in tensors]
+    if [t.dtype for t in bf] != want:
+        raise ValueError(f"{name} takes h/w1/w2/g as {want}, got "
                          f"{[t.dtype for t in bf]}")
     if d not in MODEL_DIMS or Hd % HIDDEN_QUANTUM:
         raise ValueError(f"{name}: h {tuple(h.shape)} x hidden {Hd} "
@@ -204,3 +215,57 @@ def expert_ffn_bwd(h, w1, b1, w2, g):
     _build.check(err, BWD_NAME, f"h {tuple(h.shape)}, hidden {Hd}")
     _build.count_launch(BWD_NAME)
     return dh, dw1, db1, dw2, db2
+
+
+def dequantize_weight(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 [..., out, in] times its f32 per-out-channel scale [..., out],
+    in f32 (serve/quantize.py keeps the rule that made them)."""
+    return q.float() * scale.float()[..., None]
+
+
+def quantized_expert_ffn_plain(h, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
+    """Plain version of K7: each int8 bank dequantized as
+    ``(q.float() * s).to(h.dtype)``, then ``fused_expert_ffn_plain``."""
+    return fused_expert_ffn_plain(h, dequantize_weight(w1, s1).to(h.dtype),
+                                  b1, dequantize_weight(w2, s2).to(h.dtype),
+                                  b2)
+
+
+def quantized_expert_ffn(h, w1, s1, b1, w2, s2, b2, *,
+                         use_kernels: bool = True) -> torch.Tensor:
+    """Per-expert FFN over h [E, C, d] on int8 banks w1 [E, H, d] and
+    w2 [E, d, H] with f32 scales s1 [E, H] and s2 [E, d] (one per out
+    channel) and float biases b1 [E, H], b2 [E, d].  Returns [E, C, d] in
+    h's dtype.  Inference only: raises when autograd would record it."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (h, s1, b1, s2, b2)):
+        raise RuntimeError("quantized_expert_ffn is inference-only (the int8 "
+                           "expert banks have no backward); run it under "
+                           "torch.inference_mode() or torch.no_grad()")
+    if h.is_cuda and use_kernels:
+        return expert_ffn_q_fwd(h, w1, s1, b1, w2, s2, b2)
+    return quantized_expert_ffn_plain(h, w1, s1, b1, w2, s2, b2)
+
+
+def expert_ffn_q_fwd(h, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
+    """Launches the int8-weight CUDA kernel; raises on a tensor or shape it
+    does not take.  Scales and biases are read in f32."""
+    E, Ct, d, Hd = _check(Q_NAME, h, {"w1": w1, "b1": b1, "w2": w2,
+                                      "b2": b2, "s1": s1, "s2": s2},
+                          weight_dtype=torch.int8)
+    s1, s2, b1, b2 = (t.float().contiguous() for t in (s1, s2, b1, b2))
+    out = torch.empty_like(h)
+    if E * Ct == 0:
+        return out
+    fn = _build.library(Q_NAME).expert_ffn_q_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(h.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+                 w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                 E, Ct, d, Hd, stream)
+    _build.check(err, Q_NAME, f"h {tuple(h.shape)}, hidden {Hd}")
+    _build.count_launch(Q_NAME)
+    return out

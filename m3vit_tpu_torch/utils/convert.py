@@ -6,7 +6,10 @@ modules like the torch reference model, so the keys are those of
 m3vit_tpu/utils/torch_interop.py:params_to_reference_sd (:548-650), and the
 port also loads reference-format MTL checkpoints.  This is the port's own
 copy of that mapping (flax [in, out] kernels -> torch [out, in] weights),
-plus the ``num_batches_tracked`` buffers that ``nn.BatchNorm2d`` carries.
+plus the ``num_batches_tracked`` buffers that ``nn.BatchNorm2d`` carries,
+and the int8 expert banks of a quantized model (``experts_w1_q`` ->
+``htoh4.weight_q`` transposed, kept int8; ``experts_w1_scale`` ->
+``htoh4.weight_scale``, per out channel in either layout).
 """
 
 from __future__ import annotations
@@ -57,19 +60,24 @@ def jax_variables_to_state_dict(variables: Dict, tasks: Iterable,
         dense(pre + "attn.qkv", blk["attn"]["qkv"])
         dense(pre + "attn.proj", blk["attn"]["proj"])
         mlp = blk["mlp"]
-        if "experts_w1" in mlp:  # MoE block
+        if "experts_b1" in mlp:  # MoE block
             w_gate = np.asarray(mlp["w_gate"])
             if multi_gate_tasks > 0:
                 for t in range(multi_gate_tasks):
                     put(pre + f"mlp.gate.{t}.w_gate", w_gate[t])
             else:
                 put(pre + "mlp.gate.w_gate", w_gate[0])
-            put(pre + "mlp.experts.htoh4.weight",
-                np.asarray(mlp["experts_w1"]).transpose(0, 2, 1))
-            put(pre + "mlp.experts.htoh4.bias", mlp["experts_b1"])
-            put(pre + "mlp.experts.h4toh.weight",
-                np.asarray(mlp["experts_w2"]).transpose(0, 2, 1))
-            put(pre + "mlp.experts.h4toh.bias", mlp["experts_b2"])
+            for n, bank in (("1", "htoh4"), ("2", "h4toh")):
+                key = pre + f"mlp.experts.{bank}."
+                put(key + "bias", mlp[f"experts_b{n}"])
+                if f"experts_w{n}_q" in mlp:   # int8 bank (serve/quantize)
+                    sd[key + "weight_q"] = torch.from_numpy(np.array(
+                        np.asarray(mlp[f"experts_w{n}_q"]).transpose(0, 2, 1),
+                        dtype=np.int8))
+                    put(key + "weight_scale", mlp[f"experts_w{n}_scale"])
+                else:
+                    put(key + "weight", np.asarray(
+                        mlp[f"experts_w{n}"]).transpose(0, 2, 1))
         else:
             dense(pre + "mlp.fc1", mlp["fc1"])
             dense(pre + "mlp.fc2", mlp["fc2"])

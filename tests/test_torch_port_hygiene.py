@@ -67,11 +67,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_left_out_options_raise():
-    for knob in ("scan_blocks", "stacked_tasks", "expert_weights_int8",
-                 "drop_path_rate"):
+    for knob in ("scan_blocks", "stacked_tasks", "drop_path_rate"):
         with pytest.raises(NotImplementedError, match=knob):
             build_flagship(device="cpu", **SMALL, **{knob: True})
+    # the JAX name of the fused dense sublayer is not the port's knob
+    with pytest.raises(TypeError, match="use_pallas_ln_mlp"):
+        build_flagship(device="cpu", use_pallas_ln_mlp=True, **SMALL)
     # ported since the training slice: builds, and a zero rate is accepted
     model, _ = build_flagship(device="cpu", shared_prefix=True,
                               drop_path_rate=0.0, **SMALL)
     assert model.shared_prefix
+    # ported since the int8 / ln_mlp slice: both build; the int8 model
+    # serves only
+    model, _ = build_flagship(device="cpu", ln_mlp=True, **SMALL)
+    assert all(b.ln_mlp for b in model.backbone.blocks[::2])
+    model, _ = build_flagship(device="cpu", expert_weights_int8=True, **SMALL)
+    assert model.state_dict()[
+        "backbone.blocks.1.mlp.experts.htoh4.weight_q"].dtype == torch.int8
+    with pytest.raises(RuntimeError, match="serves only"):
+        model.train()

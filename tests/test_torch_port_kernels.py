@@ -13,7 +13,9 @@ bf16 products.  The backward kernels round p, dS and da to bf16 before
 their products, as the plain versions do, but from f32 values summed in
 another order, so single roundings may differ by one bf16 step: their
 gradients are held to 1e-2 relative Frobenius error and to a max abs error
-of 2e-2 of the reference's largest magnitude.
+of 2e-2 of the reference's largest magnitude.  The int8 FFN (K7) and the
+fused LN+MLP+residual forward (K5) take the FFN's tolerances, its backward
+(K6) the gradients'.
 """
 
 import pytest
@@ -25,6 +27,8 @@ from m3vit_tpu_torch.ops.expert_ffn import (
     expert_ffn_bwd_plain,
     fused_expert_ffn,
     fused_expert_ffn_plain,
+    quantized_expert_ffn,
+    quantized_expert_ffn_plain,
 )
 from m3vit_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
@@ -33,6 +37,14 @@ from m3vit_tpu_torch.ops.flash_attention import (
     flash_attention_qkv_bwd_plain,
     flash_attention_qkv_plain,
 )
+from m3vit_tpu_torch.ops.ln_mlp import (
+    fused_ln_mlp_residual,
+    ln_mlp_bwd,
+    ln_mlp_fwd,
+    ln_mlp_residual_bwd_plain,
+    ln_mlp_residual_plain,
+)
+from m3vit_tpu_torch.serve.quantize import quantize_weight
 
 GRAD_REL_TOL, GRAD_ABS_FRAC = 1e-2, 2e-2
 
@@ -147,3 +159,82 @@ def test_autograd_functions_launch_the_backward_kernels(cuda):
         assert _build.launches[name] == before.get(name, 0) + 1, name
     assert qkv.grad.dtype == torch.bfloat16 and w1.grad.dtype == torch.float32
     assert bool(torch.isfinite(qkv.grad).all() and torch.isfinite(w1.grad).all())
+
+
+def _ffn_close(got, ref):
+    diff = got.float() - ref.float()
+    assert bool(torch.isfinite(got).all())
+    assert diff.abs().max().item() <= 2e-2
+    assert (diff.norm() / ref.float().norm()).item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,H", [(16, 520, 384, 384), (3, 77, 128, 256)])
+def test_ffn_q_kernel_matches_plain(cuda, E, C, d, H):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
+    h = r(E, C, d).bfloat16()
+    q1, s1 = quantize_weight(r(E, H, d) * d ** -0.5)
+    q2, s2 = quantize_weight(r(E, d, H) * 0.5 * H ** -0.5)
+    b1, b2 = r(E, H) * 0.1, r(E, d) * 0.1
+    before = _build.launches.get("expert_ffn_q_fwd", 0)
+    with torch.inference_mode():
+        got = quantized_expert_ffn(h, q1, s1, b1, q2, s2, b2)
+    ref = quantized_expert_ffn_plain(h, q1, s1, b1, q2, s2, b2)
+    torch.cuda.synchronize()
+    assert _build.launches["expert_ffn_q_fwd"] == before + 1
+    _ffn_close(got, ref)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        quantized_expert_ffn(h, q1, s1, b1.requires_grad_(), q2, s2, b2)
+
+
+def _ln_mlp_args(cuda, S, d, H, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
+    return (r(S, d).bfloat16(), 1.0 + 0.1 * r(d), 0.1 * r(d),
+            (r(H, d) * d ** -0.5).bfloat16(), r(H) * 0.1,
+            (r(d, H) * 0.5 * H ** -0.5).bfloat16(), r(d) * 0.1,
+            r(S, d).bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,d,H", [(1000, 384, 1536), (77, 128, 256)])
+def test_ln_mlp_kernel_matches_plain(cuda, S, d, H):
+    x, gamma, beta, w1, b1, w2, b2, _ = _ln_mlp_args(cuda, S, d, H, 5)
+    before = _build.launches.get("ln_mlp_fwd", 0)
+    got = ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2)
+    ref = ln_mlp_residual_plain(x, gamma, beta, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert _build.launches["ln_mlp_fwd"] == before + 1
+    _ffn_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,d,H", [(1000, 384, 1536), (77, 128, 256)])
+def test_ln_mlp_bwd_kernel_matches_plain(cuda, S, d, H):
+    x, gamma, beta, w1, b1, w2, _, gr = _ln_mlp_args(cuda, S, d, H, 6)
+    before = _build.launches.get("ln_mlp_bwd", 0)
+    got = ln_mlp_bwd(x, gamma, beta, w1, b1, w2, gr)
+    ref = ln_mlp_residual_bwd_plain(x, gamma, beta, w1, b1, w2, gr)
+    torch.cuda.synchronize()
+    assert _build.launches["ln_mlp_bwd"] == before + 1
+    assert got[0].dtype == torch.bfloat16
+    assert all(t.dtype == torch.float32 for t in got[1:])
+    for name, a, b in zip(("dx", "dgamma", "dbeta", "dw1", "db1", "dw2",
+                           "db2"), got, ref):
+        _assert_grad_close(a, b, name)
+
+
+@pytest.mark.cuda
+def test_ln_mlp_function_launches_both_kernels(cuda):
+    x, gamma, beta, w1, b1, w2, b2, gr = _ln_mlp_args(cuda, 130, 128, 256, 7)
+    leaves = [x.requires_grad_(), gamma.requires_grad_(),
+              w1.float().requires_grad_()]
+    before = dict(_build.launches)
+    fused_ln_mlp_residual(x, gamma, beta, leaves[2], b1, w2, b2).backward(gr)
+    torch.cuda.synchronize()
+    for name in ("ln_mlp_fwd", "ln_mlp_bwd"):
+        assert _build.launches[name] == before.get(name, 0) + 1, name
+    assert x.grad.dtype == torch.bfloat16
+    assert gamma.grad.dtype == leaves[2].grad.dtype == torch.float32
+    assert all(bool(torch.isfinite(t.grad).all()) for t in leaves)

@@ -24,7 +24,17 @@ from m3vit_tpu_torch.serve import InferenceSession
 from m3vit_tpu_torch.tasks import parse_task_dictionary
 from m3vit_tpu_torch.utils.convert import jax_variables_to_state_dict
 
-torch.set_num_threads(2)
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module's tests, restored afterwards
+    (a process-wide setting: left in place it would slow every later test
+    file of the same worker)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
 
 IMG = 64
 TASK_DICT = {"include_semseg": True, "include_sal": True,

@@ -15,7 +15,16 @@ from m3vit_tpu.moe import gating as jgate
 from m3vit_tpu_torch.moe import dispatch as tdisp
 from m3vit_tpu_torch.moe import gating as tgate
 
-torch.set_num_threads(2)
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module's tests, restored afterwards
+    (a process-wide setting: left in place it would slow every later test
+    file of the same worker)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
 
 
 def test_small_topk_ties_match_jax():

@@ -27,7 +27,16 @@ from m3vit_tpu_torch.ops.flash_attention import (
     flash_attention_qkv,
 )
 
-torch.set_num_threads(2)
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module's tests, restored afterwards
+    (a process-wide setting: left in place it would slow every later test
+    file of the same worker)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
 
 
 @pytest.mark.parametrize("valid_len", [None, 50])
