@@ -62,6 +62,7 @@ from m3vit_tpu_torch.ops.expert_ffn import (  # noqa: E402
 from m3vit_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd,
     flash_attention_fwd,
+    flash_attention_lse_plain,
     flash_attention_qkv_bwd_plain,
     flash_attention_qkv_plain,
 )
@@ -82,6 +83,7 @@ from m3vit_tpu_torch.train.step import make_train_step  # noqa: E402
 BUCKETS = (1, 2, 4, 8)
 IMG = 512
 ATTN_TOL = 2e-2          # JAX package's bf16 tolerance (test_flash_attention.py:53)
+LSE_TOL = 1e-3           # K1's lse: f32 sums of the same bf16 products, lse ~ 7-10
 FFN_ABS_TOL, FFN_REL_TOL = 2e-2, 1e-2
 AGREE_MIN, LOGIT_REL_TOL = 0.99, 2e-2
 # backward kernels vs their plain versions (bf16 outputs; p, dS and da are
@@ -133,18 +135,55 @@ def peaks_for(name: str):
     return PEAKS[name]
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median over `reps` runs of fn, each between two CUDA events."""
+def time_calls(fn, reps: int = 30, warmup: int = 3):
+    """(device ms, host ms) per call of fn.  `reps` calls go back to back
+    between one pair of CUDA events, after `warmup` calls.  The device is
+    first held in a spin (torch.cuda._sleep) long enough for the host to
+    queue all of them, so the events see the calls run as one queue: the
+    device time, not the gaps of a host slower than the kernel.  The host
+    time is the wall clock of queueing one call (the wrapper's own work)."""
     for _ in range(warmup):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    for a, b in ev:
-        a.record()
-        fn()
-        b.record()
+        per_call = time.perf_counter() - t0   # the last, warm, call
     torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in ev]))
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    # ~2e9 cycles/s: twice the expected queueing time plus 1 ms, at most ~1 s
+    torch.cuda._sleep(int(2e9 * min(2 * per_call * reps + 1e-3, 1.0)))
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps, host_ms
+
+
+def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Device ms per call of fn (see time_calls)."""
+    return time_calls(fn, reps, warmup)[0]
+
+
+def device_profile(fn, n: int = 3, top: int = 8):
+    """n calls of fn under torch.profiler: the device time per call (every
+    kernel, copy and fill the card ran, summed) and the `top` kernels by
+    time.  Set against the call's unprofiled time, it says how long the
+    card sits idle waiting for the host."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.device_time_total / 1e3 / n, e.count / n, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"), reverse=True)
+    return {"device_ms": sum(r[0] for r in rows), "top": [
+        {"name": k[:90], "ms": ms, "calls": c} for ms, c, k in rows[:top]]}
 
 
 def bound(flops: float, nbytes: float, peaks):
@@ -154,33 +193,45 @@ def bound(flops: float, nbytes: float, peaks):
 
 
 def attention_phase(peaks, dev):
-    B, N, C, H = 8, 1025, 384, 6
+    """K1 at the train/serve bucket-8 shape (all keys, and 1000 valid) and
+    at serving bucket 1; its o against the plain version, its lse against
+    the plain logsumexp, and two runs bit for bit."""
+    N, C, H = 1025, 384, 6
     d = C // H
     scale = d ** -0.5
     g = torch.Generator(device=dev).manual_seed(0)
-    qkv = torch.randn(B, N, 3 * C, device=dev, generator=g).bfloat16()
-    q, k, v = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
     cases = []
-    for valid in (None, 1000):
+    for B, valid in ((8, None), (8, 1000), (1, None)):
+        qkv = torch.randn(B, N, 3 * C, device=dev, generator=g).bfloat16()
+        q, k, v = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
         n_kv = N if valid is None else valid
-        got = flash_attention_fwd(qkv, H, scale, valid)[0]
+        got, lse = flash_attention_fwd(qkv, H, scale, valid)
+        again, lse_again = flash_attention_fwd(qkv, H, scale, valid)
         ref = flash_attention_qkv_plain(qkv, H, scale, valid)
         err = (got.float() - ref.float()).abs().max().item()
-        check(err <= ATTN_TOL and bool(torch.isfinite(got).all()),
-              f"flash_attention_fwd valid_len={valid}: max abs err {err}")
+        lse_err = (lse - flash_attention_lse_plain(qkv, H, scale, valid)
+                   ).abs().max().item()
+        same = torch.equal(got, again) and torch.equal(lse, lse_again)
+        check(err <= ATTN_TOL and lse_err <= LSE_TOL and same
+              and bool(torch.isfinite(got).all()),
+              f"flash_attention_fwd B={B} valid_len={valid}: max abs err "
+              f"{err}, lse max abs err {lse_err}, bitwise repeatable {same}")
         mask = None if valid is None else (
             torch.arange(N, device=dev) < valid).view(1, 1, 1, N)
         flops = 4.0 * B * H * N * n_kv * d
         nbytes = 2.0 * B * C * (N + 2 * n_kv) + 2.0 * B * N * C + 4.0 * B * H * N
         b_ms, b_by = bound(flops, nbytes, peaks)
+        ms, host_ms = time_calls(
+            lambda: flash_attention_fwd(qkv, H, scale, valid), 100)
         cases.append({
             "shape": f"qkv [{B},{N},{3 * C}] bf16, {H} heads of {d}",
             "valid_len": valid, "max_abs_err": err,
-            "ms": time_ms(lambda: flash_attention_fwd(qkv, H, scale, valid)),
+            "lse_max_abs_err": lse_err, "bitwise_repeatable": same,
+            "ms": ms, "host_ms": host_ms, "tflops": flops / ms / 1e9,
             "plain_ms": time_ms(
                 lambda: flash_attention_qkv_plain(qkv, H, scale, valid), 20),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, scale=scale)),
+                q, k, v, attn_mask=mask, scale=scale), 100),
             "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6,
         })
@@ -262,42 +313,46 @@ def attention_bwd_phase(peaks, dev):
         n_kv = N if valid is None else valid
         o, lse = flash_attention_fwd(qkv, H, scale, valid)
         got = flash_attention_bwd(qkv, o, lse, dout, H, scale, valid)
-        ref = flash_attention_qkv_bwd_plain(qkv, o, lse, dout, H, scale,
-                                            valid)
+        same = torch.equal(
+            got, flash_attention_bwd(qkv, o, lse, dout, H, scale, valid))
+        check(same, f"flash_attention_bwd valid_len={valid}: two runs differ")
+        # the plain backward fed the plain lse, so a wrong K1 lse shows here
+        ref = flash_attention_qkv_bwd_plain(
+            qkv, o, flash_attention_lse_plain(qkv, H, scale, valid), dout, H,
+            scale, valid)
         errs = {f"d{n}": check_grads(got[..., i * C:(i + 1) * C],
                                      ref[..., i * C:(i + 1) * C],
                                      f"flash_attention_bwd valid_len={valid}"
                                      f" d{n}")
                 for i, n in enumerate("qkv")}
-        # SDPA forward + backward through autograd, minus its forward
+        # SDPA's backward alone: its graph built once, autograd.grad timed
         q, k, v = (t.detach().clone().requires_grad_() for t in
                    qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4))
         do4 = dout.view(B, N, H, d).transpose(1, 2)
         mask = None if valid is None else (
             torch.arange(N, device=dev) < valid).view(1, 1, 1, N)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+        sdpa_out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   scale=scale)
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa(), (q, k, v), do4)
 
         flops = 10.0 * B * H * N * n_kv * d
         nbytes = (2.0 * B * N * 3 * C * 2 + 2.0 * B * N * C * 2
                   + 4.0 * B * H * N)
         b_ms, b_by = bound(flops, nbytes, peaks)
+        ms, host_ms = time_calls(lambda: flash_attention_bwd(
+            qkv, o, lse, dout, H, scale, valid), 100)
         cases.append({
             "shape": f"qkv [{B},{N},{3 * C}] bf16, {H} heads of {d}",
             "valid_len": valid, **errs,
             "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-            "ms": time_ms(lambda: flash_attention_bwd(qkv, o, lse, dout, H,
-                                                      scale, valid)),
+            "bitwise_repeatable": same,
+            "ms": ms, "host_ms": host_ms, "tflops": flops / ms / 1e9,
             "plain_ms": time_ms(lambda: flash_attention_qkv_bwd_plain(
                 qkv, o, lse, dout, H, scale, valid), 10),
-            "library_ms": time_ms(sdpa_fwd_bwd) - time_ms(sdpa),
-            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
-            "mbytes": nbytes / 1e6,
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (q, k, v), do4, retain_graph=True), 100),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_7_products_ms": bound(1.4 * flops, nbytes, peaks)[0],
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
         })
     emit({"phase": "flash_attention_bwd", "cases": cases})
     return cases
@@ -581,6 +636,13 @@ def serving_phase(dev):
               launches, passes,
               expected_serving_launches(len(model.backbone.blocks)),
               "serving")})
+    # the device's share of a bucket-8 uint8 request (p50 above)
+    prof = device_profile(lambda: raw.predict(u8, "semseg", postprocess=True),
+                          5)
+    emit({"phase": "serving_profile", "bucket": 8,
+          "device_ms_per_request": prof["device_ms"],
+          "device_idle_frac": 1.0 - prof["device_ms"] / row["uint8_post"][
+              "p50_ms"], "top_kernels": prof["top"]})
 
     # the same weights through the plain PyTorch versions, at bucket 2
     imgs = rng.randn(2, IMG, IMG, 3).astype(np.float32)
@@ -806,8 +868,13 @@ def timed_steps(model, names, loss_fns, batch, dev, expected, what: str):
           f"{what} timed step loss")
     per_step = check_launches(launches, TIMED_STEPS, expected, what)
     step_ms = [a.elapsed_time(b) for a, b in ev]
+    median = float(np.median(step_ms))
+    prof = device_profile(lambda: step(batch, noise))
     return {"batch": TRAIN_BATCH, "steps": TIMED_STEPS,
-            "step_ms_median": float(np.median(step_ms)), "step_ms": step_ms,
+            "step_ms_median": median, "step_ms": step_ms,
+            "device_ms_per_step": prof["device_ms"],
+            "device_idle_frac": 1.0 - prof["device_ms"] / median,
+            "top_kernels": prof["top"],
             "img_per_s": TIMED_STEPS * TRAIN_BATCH / window_s,
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches_per_step": per_step,

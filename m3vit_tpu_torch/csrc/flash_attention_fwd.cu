@@ -9,199 +9,218 @@
 //
 // What bounds it: at the flagship shape (B=8, N=1025, H=6, D=64) one launch
 // does 12.9 GFLOP on ~25 MB, about 500 FLOP per byte, above the H100's
-// ridge (~295 bf16 FLOP/B): the tensor cores bound it, and the
-// [N, N] score matrix must never reach device memory.  Design: one CTA per
-// (64-query tile, head, batch), 4 warps of 16 query rows each; K/V stream
-// through shared memory in 64-key tiles with an online softmax in f32, so
-// scores and probabilities live only in shared memory.  The two products
-// run on the tensor cores through WMMA bf16 16x16x16 with f32 accumulators;
-// p is rounded to bf16 before p.v, as on the TPU.  This first version has
-// no cp.async/TMA pipelining and no wgmma: simple and right first.
+// ridge (~295 bf16 FLOP/B): the tensor cores bound it (0.013 ms at 989
+// TFLOP/s), and the [N, N] score matrix must never reach device memory.
 //
-// Rows past N (the ragged tail, N=1025 is no tile multiple) are zero-filled
-// on load and never stored; keys past min(valid, N) are masked to -inf, and
-// the key loop stops at the last tile holding a valid key.
+// Design.  One CTA of one warpgroup per (64-query tile, head, batch): 102
+// CTAs at B=1 (one wave on 132 SMs), 816 at B=8 (5 resident per SM at 96
+// registers and 42 KB of shared memory: 1.24 waves).
+// - Loads: thread 0 starts TMA copies over a 3-D tensor map of qkv
+//   (dims 3C, N, B), so the head offset is a coordinate and rows past N
+//   arrive as zeros, never as the next image's rows.  Q is loaded once; K
+//   and V stream through a 2-stage ring of 64-key tiles on mbarriers.  The
+//   copy of tile t+1 is in flight while tile t is multiplied; a stage is
+//   refilled as soon as all four warps are done with it.
+// - S = Q K^T: wgmma m64n64k16, Q and K both K-major in shared memory,
+//   swizzled by TMA as the descriptors read them (128 B, or 64 B at D=32).
+//   The f32 scores stay in registers.  Within a CTA the products and the
+//   softmax run in turn; the ~5 CTAs resident on an SM overlap each other
+//   (issuing tile t+1's scores under tile t's softmax measured slower at
+//   B=8: 123 registers and a 3rd stage leave 3 CTAs per SM).
+// - Online softmax on the accumulator fragment: scores scaled by
+//   scale*log2(e), exp2f, row max by quad shuffles; the row sum stays per
+//   thread until the end.  S, P and O never touch shared memory.
+// - O += P V: wgmma with A = P from registers (the S accumulator rounded to
+//   bf16 pairs is wgmma's A-register layout) and B = V MN-major (transpose
+//   bit).  O is rescaled in registers.  p is rounded to bf16 before P V, as
+//   on the TPU; scores, statistics and accumulators are f32.
+// - Epilogue: O / l as bf16 at columns h*D of o; lse = (m2 + log2 l) ln 2,
+//   the natural log the backward and the plain version expect.
+// Keys at or past min(valid, N) are masked to -inf; the key loop stops at
+// the last tile holding a valid key.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "hopper.cuh"
 
-#include <cstdint>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace hopper;
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per CTA (4 warps x 16)
-constexpr int BK = 64;        // keys per K/V tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
+constexpr int STAGES = 2;     // K/V ring depth
+constexpr int THREADS = 128;  // one warpgroup
 
 template <int D>
 struct Smem {
-  static constexpr int LDH = D + 8;    // bf16 row stride of Q/K/V tiles
-  static constexpr int LDS = BK + 4;   // f32 row stride of a warp's scores
-  static constexpr int LDO = D + 4;    // f32 row stride of a warp's output
-  static constexpr int LDP = BK + 8;   // bf16 row stride of a warp's probs
-  static constexpr size_t q = size_t(BQ) * LDH * sizeof(bf16);
-  static constexpr size_t kv = size_t(BK) * LDH * sizeof(bf16);
-  static constexpr size_t s = size_t(WARPS) * 16 * LDS * sizeof(float);
-  static constexpr size_t o = size_t(WARPS) * 16 * LDO * sizeof(float);
-  static constexpr size_t p = size_t(WARPS) * 16 * LDP * sizeof(bf16);
-  static constexpr size_t bytes = q + 2 * kv + s + o + p;
+  static constexpr int TILE = Tile<D>::BYTES;
+  static constexpr int Q = 0;
+  static constexpr int K = TILE;
+  static constexpr int V = K + STAGES * TILE;
+  static constexpr int BAR = V + STAGES * TILE;   // Q barrier, then stages
+  static constexpr int BYTES = BAR + 8 * (1 + STAGES) + 1024;  // + alignment
 };
-
-// Copies rows [r0, r0 + 64) of a strided [N, D] bf16 slice into shared
-// memory (row stride LDH), 16 bytes per thread per step; rows >= n are zero.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
-                                          int n, int64_t stride, int tid) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < 64 * CPR; i += THREADS) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      v = *reinterpret_cast<const uint4*>(src + int64_t(r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * Smem<D>::LDH + c) = v;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                 float* __restrict__ lse, int N, int H, int valid,
-                 float scale) {
+flash_fwd_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                 bf16* __restrict__ out, float* __restrict__ lse, int N,
+                 int H, int valid, float scale_log2) {
+  using T = Tile<D>;
   using S = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + S::q);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + S::q + S::kv);
-  float* Ss = reinterpret_cast<float*>(smem + S::q + 2 * S::kv);
-  float* Os = reinterpret_cast<float*>(smem + S::q + 2 * S::kv + S::s);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + S::q + 2 * S::kv + S::s + S::o);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1k(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::BAR);
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int C = H * D;
-  const int64_t rs = 3 * int64_t(C);
-  const bf16* base = qkv + int64_t(b) * N * rs;
-
-  float* Sw = Ss + warp * 16 * S::LDS;
-  float* Ow = Os + warp * 16 * S::LDO;
-  bf16* Pw = Ps + warp * 16 * S::LDP;
-
-  load_rows<D>(Qs, base + h * D, q0, N, rs, tid);
-  for (int i = lane; i < 16 * D; i += 32) Ow[(i / D) * S::LDO + i % D] = 0.f;
-
-  // each row of the warp's 16 is owned by a lane pair: lane 2r holds
-  // columns [0, 32) of the key tile, lane 2r+1 columns [32, 64)
-  const int r = lane >> 1, half = lane & 1;
-  float m_i = -INFINITY, l_i = 0.f;
   const int n_kv = min(valid, N);
-  const int n_tiles = (n_kv + BK - 1) / BK;
+  const int n_tiles = (n_kv + ROWS - 1) / ROWS;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<D>(Ks, base + C + h * D, k0, N, rs, tid);
-    load_rows<D>(Vs, base + 2 * C + h * D, k0, N, rs, tid);
-    __syncthreads();
-
-    // S_w[16, 64] = Q_w K^T (f32 accumulate)
-#pragma unroll
-    for (int nt = 0; nt < BK / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-        wmma::load_matrix_sync(a, Qs + (warp * 16) * S::LDH + kk * 16, S::LDH);
-        wmma::load_matrix_sync(bk, Ks + (nt * 16) * S::LDH + kk * 16, S::LDH);
-        wmma::mma_sync(acc, a, bk, acc);
-      }
-      wmma::store_matrix_sync(Sw + nt * 16, acc, S::LDS, wmma::mem_row_major);
+  if (tid == 0) {
+    for (int i = 0; i <= STAGES; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], S::TILE);
+    tma_load_tile<D>(smem + S::Q, &qkv_map, &bars[0], h * D, q0, b);
+    for (int s = 0; s < STAGES && s < n_tiles; ++s) {
+      mbar_expect_tx(&bars[1 + s], 2 * S::TILE);
+      tma_load_tile<D>(smem + S::K + s * S::TILE, &qkv_map, &bars[1 + s],
+                       C + h * D, s * ROWS, b);
+      tma_load_tile<D>(smem + S::V + s * S::TILE, &qkv_map, &bars[1 + s],
+                       2 * C + h * D, s * ROWS, b);
     }
-    __syncwarp();
-
-    // online softmax over this tile, f32
-    const float* srow = Sw + r * S::LDS + half * 32;
-    float sv[32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int col = k0 + half * 32 + j;
-      const float v = col < n_kv ? srow[j] * scale : -INFINITY;
-      sv[j] = v;
-      mx = fmaxf(mx, v);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);  // finite: key 0 is always valid
-    const float alpha = expf(m_i - m_new);
-    float sum = 0.f;
-    bf16* prow = Pw + r * S::LDP + half * 32;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float p = expf(sv[j] - m_new);
-      sum += p;
-      prow[j] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_i = l_i * alpha + sum;
-    m_i = m_new;
-    float* orow = Ow + r * S::LDO + half * (D / 2);
-#pragma unroll
-    for (int j = 0; j < D / 2; ++j) orow[j] *= alpha;
-    __syncwarp();
-
-    // O_w[16, D] += P_w V (f32 accumulate on the rescaled output)
-#pragma unroll
-    for (int nt = 0; nt < D / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Ow + nt * 16, S::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, Pw + kk * 16, S::LDP);
-        wmma::load_matrix_sync(bv, Vs + (kk * 16) * S::LDH + nt * 16, S::LDH);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(Ow + nt * 16, acc, S::LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
   }
 
-  const int row = q0 + warp * 16 + r;
-  if (row < N) {
-    const float* orow = Ow + r * S::LDO + half * (D / 2);
-    bf16* dst = out + (int64_t(b) * N + row) * C + h * D + half * (D / 2);
+  // this thread's rows r0 and r0 + 8, columns 8n + cq + {0, 1}
+  const int cq = 2 * (lane % 4);
+  float o[T::NCH][T::CW / 2];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) dst[j] = __float2bfloat16(orow[j] / l_i);
-    if (half == 0) lse[(int64_t(b) * H + h) * N + row] = m_i + logf(l_i);
+  for (int c = 0; c < T::NCH; ++c)
+#pragma unroll
+    for (int j = 0; j < T::CW / 2; ++j) o[c][j] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  mbar_wait(&bars[0], 0);
+  const uint8_t* Qs = smem + S::Q;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES;
+    const uint8_t* Ks = smem + S::K + st * S::TILE;
+    const uint8_t* Vs = smem + S::V + st * S::TILE;
+    mbar_wait(&bars[1 + st], (t / STAGES) & 1);
+
+    // S = Q K^T, f32 in registers
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < T::KSTEPS; ++kk)
+      wgmma_ss_n64(s, desc_k<D>(Qs, kk), desc_k<D>(Ks, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    const int lim = n_kv - t * ROWS;   // valid keys in this tile
+    if (lim < ROWS) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        if ((j / 4) * 8 + cq + (j & 1) >= lim) s[j] = -INFINITY;
+    }
+
+    // online softmax in the log2 domain; key 0 of every tile is valid, so
+    // the running max is finite after the first tile
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+        mx = fmaxf(mx, fmaxf(s[4 * nb + 2 * i], s[4 * nb + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx * scale_log2);
+      const float alpha = exp2f(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = s[4 * nb + 2 * i + e];
+          v = exp2f(fmaf(v, scale_log2, -m_new));
+          sum += v;
+        }
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < T::NCH; ++c)
+#pragma unroll
+        for (int nb = 0; nb < T::CW / 8; ++nb) {
+          o[c][4 * nb + 2 * i] *= alpha;
+          o[c][4 * nb + 2 * i + 1] *= alpha;
+        }
+    }
+
+    // O += P V, P from registers
+    uint32_t p[4][4];
+    to_a_frags(s, p);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < ROWS / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < T::NCH; ++c)
+        wgmma_rs(o[c], p[kk], desc_mn<D>(Vs, c, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < T::NCH; ++c) fence_regs(o[c]);
+
+    __syncthreads();   // every warp is done with this stage: refill it
+    if (tid == 0 && t + STAGES < n_tiles) {
+      mbar_expect_tx(&bars[1 + st], 2 * S::TILE);
+      tma_load_tile<D>(smem + S::K + st * S::TILE, &qkv_map, &bars[1 + st],
+                       C + h * D, (t + STAGES) * ROWS, b);
+      tma_load_tile<D>(smem + S::V + st * S::TILE, &qkv_map, &bars[1 + st],
+                       2 * C + h * D, (t + STAGES) * ROWS, b);
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = 1.f / l[i];
+  }
+  store_acc<D>(o, out + int64_t(b) * N * C + h * D, C, q0, N, inv[0], inv[1]);
+  if (lane % 4 == 0) {
+    const int r = q0 + (tid / 32) * 16 + lane / 4;
+    float* dst = lse + (int64_t(b) * H + h) * N;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (r + 8 * i < N) dst[r + 8 * i] = (m[i] + log2f(l[i])) * LN2;
   }
 }
 
 template <int D>
 cudaError_t launch(const void* qkv, void* out, void* lse, int B, int N, int H,
                    int valid, float scale, cudaStream_t stream) {
-  const size_t bytes = Smem<D>::bytes;
+  CUtensorMap map;
+  if (!make_tile_map<D>(&map, qkv, 3 * H * D, N, B))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(bytes));
+      Smem<D>::BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
-      static_cast<float*>(lse), N, H, valid, scale);
+  dim3 grid((N + ROWS - 1) / ROWS, H, B);
+  flash_fwd_kernel<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
+      map, static_cast<bf16*>(out), static_cast<float*>(lse), N, H, valid,
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// qkv [B, N, 3*H*D] bf16 contiguous, out [B, N, H*D] bf16, lse [B, H, N] f32.
-// Returns a cudaError_t; cudaErrorInvalidValue for a head_dim not built.
+// qkv [B, N, 3*H*D] bf16 contiguous and 16-byte aligned, out [B, N, H*D]
+// bf16, lse [B, H, N] f32.  Returns a cudaError_t; cudaErrorInvalidValue
+// for a head_dim not built or a tensor map the CUDA driver refuses.
 extern "C" int flash_attention_fwd(const void* qkv, void* out, void* lse,
                                    int B, int N, int H, int D, int valid,
                                    float scale, void* stream) {

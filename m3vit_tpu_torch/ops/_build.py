@@ -7,6 +7,8 @@ sources compile in parallel, once, at the first kernel call (or at
 covers the sources and the compiler flags.  Nothing is compiled when the
 package is imported, and a failed build raises with the compiler's output.
 
+A wrapper binds its C entry point once with ``bind`` (argument types set at
+first use) and launches it with ``call`` on the tensor's current stream.
 ``launches`` counts, per kernel, the launches its wrapper made; a run resets
 it with ``reset_launches()`` to show which kernels a path went through.
 """
@@ -23,6 +25,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
@@ -37,6 +41,7 @@ launches: Dict[str, int] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
@@ -123,6 +128,28 @@ def library(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(build_dir() / f"{name}.so"))
                 _libs[name] = lib
     return lib
+
+
+def bind(name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point `name` of library `name` with its argument types set,
+    built and bound once (a call then does no ctypes set-up)."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(library(name), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _fns[name] = fn
+    return fn
+
+
+def call(fn, device, *args) -> int:
+    """fn(*args, stream) on `device`'s current CUDA stream.  The device guard
+    is entered only when `device` is not the current one: it costs more host
+    time than the shortest kernels take."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def check(err: int, name: str, what: str) -> None:

@@ -154,14 +154,11 @@ def expert_ffn_fwd(h, w1, b1, w2, b2) -> torch.Tensor:
     out = torch.empty_like(h)
     if E * Ct == 0:
         return out
-    fn = _build.library(NAME).expert_ffn_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(h.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 b2.data_ptr(), out.data_ptr(), E, Ct, d, Hd, stream)
+    fn = _build.bind(NAME, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
+    err = _build.call(
+        fn, h.device, h.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), E, Ct, d, Hd)
     _build.check(err, NAME, f"h {tuple(h.shape)}, hidden {Hd}")
     _build.count_launch(NAME)
     return out
@@ -202,16 +199,13 @@ def expert_ffn_bwd(h, w1, b1, w2, g):
     parts = (dw1, db1, dw2, db2) if ks == 1 else tuple(
         torch.empty((ks,) + tuple(t.shape), **f32)
         for t in (dw1, db1, dw2, db2))
-    fn = _build.library(BWD_NAME).expert_ffn_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(h.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 g.data_ptr(), dh.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-                 dw2.data_ptr(), db2.data_ptr(),
-                 *(p.data_ptr() for p in parts), E, Ct, d, Hd, ks, stream)
+    fn = _build.bind(BWD_NAME, [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+                               + [ctypes.c_void_p])
+    err = _build.call(
+        fn, h.device, h.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), g.data_ptr(), dh.data_ptr(), dw1.data_ptr(),
+        db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
+        *(p.data_ptr() for p in parts), E, Ct, d, Hd, ks)
     _build.check(err, BWD_NAME, f"h {tuple(h.shape)}, hidden {Hd}")
     _build.count_launch(BWD_NAME)
     return dh, dw1, db1, dw2, db2
@@ -257,15 +251,12 @@ def expert_ffn_q_fwd(h, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
     out = torch.empty_like(h)
     if E * Ct == 0:
         return out
-    fn = _build.library(Q_NAME).expert_ffn_q_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(h.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
-                 w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                 E, Ct, d, Hd, stream)
+    fn = _build.bind(Q_NAME, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p])
+    err = _build.call(
+        fn, h.device, h.data_ptr(), w1.data_ptr(), s1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), E, Ct, d, Hd)
     _build.check(err, Q_NAME, f"h {tuple(h.shape)}, hidden {Hd}")
     _build.count_launch(Q_NAME)
     return out

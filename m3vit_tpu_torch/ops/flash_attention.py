@@ -24,6 +24,10 @@ from m3vit_tpu_torch.ops import _build
 NAME = "flash_attention_fwd"
 BWD_NAME = "flash_attention_bwd"
 HEAD_DIMS = (32, 64, 128)
+_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                          ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                          ctypes.c_void_p]
 
 
 def _split(qkv: torch.Tensor, num_heads: int):
@@ -158,14 +162,10 @@ def flash_attention_fwd(qkv: torch.Tensor, num_heads: int, scale: float,
                       device=qkv.device)
     if B * N == 0:
         return out, lse
-    fn = _build.library(NAME).flash_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, N,
-                 num_heads, d, valid, float(scale), stream)
+    err = _build.call(
+        _build.bind(NAME, _FWD_ARGS), qkv.device, qkv.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, N, num_heads, d, valid,
+        float(scale))
     _build.check(err, NAME, f"qkv {tuple(qkv.shape)}, heads {num_heads}")
     _build.count_launch(NAME)
     return out, lse
@@ -191,19 +191,14 @@ def flash_attention_bwd(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     dqkv = torch.empty_like(qkv)
     if B * N == 0:
         return dqkv
-    # delta = rowsum(dO o) per (batch, head, row), written by the kernel's
-    # first pass and read by the other two
-    delta = torch.empty((B, num_heads, N), dtype=torch.float32,
-                        device=qkv.device)
-    fn = _build.library(BWD_NAME).flash_attention_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qkv.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                 dout.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B, N,
-                 num_heads, d, valid, float(scale), stream)
+    # lse * log2(e) and delta = rowsum(dO o) per 64-row query tile, written
+    # by the backward's prep kernel and read by its dk/dv and dq CTAs
+    stats = torch.empty((B * num_heads * -(-N // 64) * 128,),
+                        dtype=torch.float32, device=qkv.device)
+    err = _build.call(
+        _build.bind(BWD_NAME, _BWD_ARGS), qkv.device, qkv.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), dout.data_ptr(), stats.data_ptr(),
+        dqkv.data_ptr(), B, N, num_heads, d, valid, float(scale))
     _build.check(err, BWD_NAME, f"qkv {tuple(qkv.shape)}, heads {num_heads}")
     _build.count_launch(BWD_NAME)
     return dqkv

@@ -153,15 +153,12 @@ def ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, eps: float = EPS):
     out = torch.empty_like(x)
     if S == 0:
         return out
-    fn = _build.library(NAME).ln_mlp_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                 out.data_ptr(), S, d, H, eps, stream)
+    fn = _build.bind(NAME, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                           + [ctypes.c_float, ctypes.c_void_p])
+    err = _build.call(
+        fn, x.device, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), S, d, H, eps)
     _build.check(err, NAME, f"x {tuple(x.shape)}, hidden {H}")
     _build.count_launch(NAME)
     return out
@@ -192,18 +189,14 @@ def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, gr, eps: float = EPS):
         torch.empty((ks,) + tuple(t.shape), **f32)
         for t in (dw1, db1, dw2, db2))
     pgb = torch.empty((-(-S // DX_TOKEN_TILE), 2, d), **f32)
-    fn = _build.library(BWD_NAME).ln_mlp_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), gr.data_ptr(),
-                 dx.data_ptr(), dgb.data_ptr(), dw1.data_ptr(),
-                 db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-                 pgb.data_ptr(), *(p.data_ptr() for p in parts), S, d, H,
-                 ks, eps, stream)
+    fn = _build.bind(BWD_NAME, [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4
+                               + [ctypes.c_float, ctypes.c_void_p])
+    err = _build.call(
+        fn, x.device, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), gr.data_ptr(),
+        dx.data_ptr(), dgb.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+        dw2.data_ptr(), db2.data_ptr(), pgb.data_ptr(),
+        *(p.data_ptr() for p in parts), S, d, H, ks, eps)
     _build.check(err, BWD_NAME, f"x {tuple(x.shape)}, hidden {H}")
     _build.count_launch(BWD_NAME)
     return dx, dgb[0], dgb[1], dw1, db1, dw2, db2
