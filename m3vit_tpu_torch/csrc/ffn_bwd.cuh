@@ -71,36 +71,10 @@ constexpr float INV_SQRT_2PI = 0.39894228040143268f;
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// One consumer warpgroup's own barrier.
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
-}
-
-// full[s]: one producer arrival plus the stage's TMA bytes; empty[s]: one
-// arrival per consumer warp.
-__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty,
-                                          int stages, int consumer_warps) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], consumer_warps);
-    }
-    hopper::mbar_fence_init();
-  }
-  __syncthreads();
-}
-
-// Producer side of ring step `it`: waits until the stage's previous
-// contents were released, then announces `bytes` of TMA traffic on its full
-// barrier.
-template <int STAGES>
-__device__ __forceinline__ int produce_begin(uint64_t* full, uint64_t* empty,
-                                             int it, uint32_t bytes) {
-  const int st = it % STAGES;
-  if (it >= STAGES) hopper::mbar_wait(&empty[st], ((it / STAGES) - 1) & 1);
-  hopper::mbar_expect_tx(&full[st], bytes);
-  return st;
-}
+// The ring (ring_init, produce_begin) and warpgroup_sync are hopper.cuh's.
+using hopper::produce_begin;
+using hopper::ring_init;
+using hopper::warpgroup_sync;
 
 // Consumer side of ring step `it` (the i-th of its tile) after its products
 // were issued and committed: waits for the previous step's products, then

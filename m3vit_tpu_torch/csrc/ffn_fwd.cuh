@@ -1,11 +1,11 @@
-// The fused FFN forward shared by K3 (expert_ffn_fwd.cu), K7
-// (expert_ffn_q_fwd.cu) and K5 (ln_mlp_fwd.cu): one CTA holds a [64, D]
-// token tile in shared memory and its [64, D] f32 output accumulator in
-// registers (WMMA fragments, 8 warps of 16 rows x D/2 columns), and walks
-// the hidden axis in 64-wide chunks: a = gelu(h w1^T chunk + b1) goes to
-// shared memory only (rounded to bf16), then acc += a w2^T chunk.  How the
-// token tile and the weight chunks reach shared memory, and what the
-// epilogue does with the accumulator, is each kernel's own.
+// The WMMA fused FFN forward of K7 (expert_ffn_q_fwd.cu), the first design
+// K3 and K5 also used until they moved to wgmma (ffn_fwd_wgmma.cuh): one
+// CTA holds a [64, D] token tile in shared memory and its [64, D] f32
+// output accumulator in registers (WMMA fragments, 8 warps of 16 rows x D/2
+// columns), and walks the hidden axis in 64-wide chunks: a = gelu(h w1^T
+// chunk + b1) goes to shared memory only (rounded to bf16), then acc += a
+// w2^T chunk.  How the weight chunks reach shared memory, and what the
+// epilogue does with the accumulator, is the kernel's own.
 
 #pragma once
 
@@ -139,20 +139,5 @@ __device__ __forceinline__ const float* stage(unsigned char* smem,
   __syncthreads();
   return St;
 }
-
-// Loads bf16 weight chunks as they are (K3, K5).
-template <int D>
-struct LoadWBf16 {
-  const bf16* w1e;  // [Hd, D]
-  const bf16* w2e;  // [D, Hd]
-  int Hd;
-  __device__ __forceinline__ void operator()(int j0, bf16* W1s,
-                                             bf16* W2s) const {
-    using S = FwdSmem<D>;
-    const int tid = threadIdx.x;
-    copy_tile(W1s, S::LDH, w1e + int64_t(j0) * D, D, HC, HC, D, tid);
-    copy_tile(W2s, S::LDW2, w2e + j0, Hd, D, D, HC, tid);
-  }
-};
 
 }  // namespace ffn

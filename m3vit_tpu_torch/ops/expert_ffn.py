@@ -150,12 +150,19 @@ def _check(name, h, tensors, weight_dtype=torch.bfloat16):
     return E, Ct, d, Hd
 
 
+def _f32_aligned(t: torch.Tensor) -> torch.Tensor:
+    """t as a contiguous f32 tensor whose data is 16-byte aligned (the
+    forward kernels read biases and LayerNorm parameters in pairs and
+    fours)."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def expert_ffn_fwd(h, w1, b1, w2, b2) -> torch.Tensor:
     """Launches the CUDA kernel; raises on a tensor or shape it does not
     take.  Biases are read in f32 (cast here when given otherwise)."""
     E, Ct, d, Hd = _check(NAME, h, {"w1": w1, "b1": b1, "w2": w2, "b2": b2})
-    b1 = b1.float().contiguous()
-    b2 = b2.float().contiguous()
+    b1, b2 = (_f32_aligned(t) for t in (b1, b2))
     out = torch.empty_like(h)
     if E * Ct == 0:
         return out

@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from m3vit_tpu_torch.ops import _build
-from m3vit_tpu_torch.ops.expert_ffn import _check, _scratch_bytes, bwd_plan
+from m3vit_tpu_torch.ops.expert_ffn import (_check, _f32_aligned,
+                                            _scratch_bytes, bwd_plan)
 
 NAME = "ln_mlp_fwd"
 BWD_NAME = "ln_mlp_bwd"
@@ -147,8 +148,7 @@ def ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, eps: float = EPS):
     take.  gamma, beta and the biases are read in f32."""
     S, d, H = _check_ln(NAME, x, {"w1": w1, "b1": b1, "w2": w2, "b2": b2,
                                   "gamma": gamma, "beta": beta})
-    gamma, beta, b1, b2 = (t.float().contiguous()
-                           for t in (gamma, beta, b1, b2))
+    gamma, beta, b1, b2 = (_f32_aligned(t) for t in (gamma, beta, b1, b2))
     out = torch.empty_like(x)
     if S == 0:
         return out

@@ -33,10 +33,17 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], p: Dict,
     """(torch.optim.SGD, schedule) from the JAX config keys
     ({"optimizer": "sgd", "optimizer_kwargs": {lr, momentum, weight_decay,
     nesterov}, "scheduler": "poly", "epochs"}).  The train step sets each
-    step's lr from the schedule."""
+    step's lr from the schedule.  Gradient accumulation (the JAX package's
+    optax.MultiSteps, with the schedule counted in optimizer steps) is not
+    ported: ``accumulation_steps`` > 1 raises rather than train with another
+    update rule."""
     if p.get("optimizer", "sgd") != "sgd" or p.get("scheduler",
                                                     "poly") != "poly":
         raise NotImplementedError("only SGD with the poly schedule is ported")
+    if int(p.get("accumulation_steps", 1)) > 1:
+        raise NotImplementedError(
+            "accumulation_steps > 1 (optax.MultiSteps in the JAX package) is "
+            "not ported")
     kw = dict(p.get("optimizer_kwargs") or {})
     base_lr = float(kw.get("lr", 1e-3))
     opt = torch.optim.SGD(

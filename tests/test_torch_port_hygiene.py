@@ -1,4 +1,5 @@
-"""Port hygiene: the PyTorch package and chip_smoke.py import nothing of JAX
+"""Port hygiene: the PyTorch package, chip_smoke.py and the port's scripts
+import nothing of JAX
 or of the JAX package, and the entry points refuse to fall back to the CPU.
 
 The import check reads the sources with ``ast``: a ``sys.modules`` check
@@ -21,7 +22,7 @@ SMALL = dict(img=32, embed=128, depth=2, heads=2, experts=4, top_k=2)
 
 def _port_files():
     return sorted((ROOT / "m3vit_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "time_ffn_fwd.py"]
 
 
 def _imported_roots(source):

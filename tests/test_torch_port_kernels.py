@@ -26,6 +26,7 @@ from m3vit_tpu_torch.ops.expert_ffn import (
     bwd_plan,
     expert_ffn_bwd,
     expert_ffn_bwd_plain,
+    expert_ffn_fwd,
     fused_expert_ffn,
     fused_expert_ffn_plain,
     quantized_expert_ffn,
@@ -119,21 +120,46 @@ def test_flash_kernels_lse_and_determinism(cuda, B, N, d, valid):
     assert torch.equal(dq, dq2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("E,C,d,H", [(16, 520, 384, 384), (1, 1000, 384, 1536),
-                                     (3, 77, 128, 256)])
-def test_ffn_kernel_matches_plain(cuda, E, C, d, H):
-    g = torch.Generator(device=cuda).manual_seed(0)
+# K3's cases: the serving and train capacities, the dense MLP, and token
+# counts that are not a multiple of its 128-row tile (77: one tile whose
+# second 64-row half is partly past the end; 40: wholly past it)
+FFN_CASES = [(16, 520, 384, 384), (1, 1000, 384, 1536), (3, 77, 128, 256),
+             (16, 2568, 384, 384), (2, 77, 384, 384), (1, 40, 384, 1536)]
+
+
+def _ffn_args(cuda, E, C, d, H, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
-    h = r(E, C, d).bfloat16()
-    w1, w2 = (r(E, H, d) * d ** -0.5).bfloat16(), (r(E, d, H) * 0.5 * H ** -0.5).bfloat16()
-    b1, b2 = r(E, H) * 0.1, r(E, d) * 0.1
+    return (r(E, C, d).bfloat16(), (r(E, H, d) * d ** -0.5).bfloat16(),
+            r(E, H) * 0.1, (r(E, d, H) * 0.5 * H ** -0.5).bfloat16(),
+            r(E, d) * 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,H", FFN_CASES)
+def test_ffn_kernel_matches_plain(cuda, E, C, d, H):
+    h, w1, b1, w2, b2 = _ffn_args(cuda, E, C, d, H, 0)
+    before = _build.launches.get("expert_ffn_fwd", 0)
     got = fused_expert_ffn(h, w1, b1, w2, b2)
     ref = fused_expert_ffn_plain(h, w1, b1, w2, b2)
     torch.cuda.synchronize()
+    assert _build.launches["expert_ffn_fwd"] == before + 1
     diff = (got.float() - ref.float())
+    assert bool(torch.isfinite(got).all())
     assert diff.abs().max().item() <= 2e-2
     assert (diff.norm() / ref.float().norm()).item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,H", [(16, 2568, 384, 384), (1, 8200, 384, 1536),
+                                     (3, 77, 128, 256)])
+def test_ffn_kernel_is_deterministic(cuda, E, C, d, H):
+    """Two runs of K3 on the same inputs give the same bits."""
+    args = _ffn_args(cuda, E, C, d, H, 8)
+    first = expert_ffn_fwd(*args)
+    second = expert_ffn_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -293,7 +319,9 @@ def _ln_mlp_args(cuda, S, d, H, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,d,H", [(1000, 384, 1536), (77, 128, 256)])
+@pytest.mark.parametrize("S,d,H", [(1000, 384, 1536), (77, 128, 256),
+                                   (8200, 384, 1536), (77, 384, 1536),
+                                   (40, 384, 384)])
 def test_ln_mlp_kernel_matches_plain(cuda, S, d, H):
     x, gamma, beta, w1, b1, w2, b2, _ = _ln_mlp_args(cuda, S, d, H, 5)
     before = _build.launches.get("ln_mlp_fwd", 0)
@@ -302,6 +330,17 @@ def test_ln_mlp_kernel_matches_plain(cuda, S, d, H):
     torch.cuda.synchronize()
     assert _build.launches["ln_mlp_fwd"] == before + 1
     _ffn_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,d,H", [(8200, 384, 1536), (77, 128, 256)])
+def test_ln_mlp_kernel_is_deterministic(cuda, S, d, H):
+    """Two runs of K5 on the same inputs give the same bits."""
+    x, gamma, beta, w1, b1, w2, b2, _ = _ln_mlp_args(cuda, S, d, H, 10)
+    first = ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2)
+    second = ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
