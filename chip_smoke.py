@@ -7,9 +7,10 @@ Builds the hand-written kernels from m3vit_tpu_torch/csrc (K1/K2 flash
 attention forward/backward, K3/K4 fused FFN forward/backward, K5/K6 fused
 LayerNorm + MLP + residual forward/backward, K7 int8-weight FFN forward),
 holds each against its plain PyTorch version at the flagship's shapes and
-times them (K1-K6 also run twice and must give the same bits, and build
-with 0 bytes spilled; K4/K6 report each pass's device time and the memory
-one call holds).  Then it
+times them (each also runs twice and must give the same bits, and builds
+with 0 bytes spilled; K4/K6/K7 report each pass's device time and the
+memory one call holds, and K7 must give K3's bits on the dequantized
+banks).  Then it
 drives the flagship model (ViT-small-MoE, 512x512, 5 PASCAL tasks, seeded
 random weights) along each of its paths, the kernels' launch counts set to
 0 just before each path and read just after:
@@ -21,7 +22,8 @@ random weights) along each of its paths, the kernels' launch counts set to
   cotangent), then steps that must lower the loss, timed, with the
   kernels' launches counted per step;
 - int8 serving: the flagship's expert banks quantized by the port's own
-  quantizer and served at buckets 1/2/4/8, held against its plain path;
+  quantizer and served at buckets 1/2/4/8 (peak memory, and the device
+  time of a bucket-8 request), held against its plain path;
 - ln_mlp: the flagship with the fused dense sublayer, served at bucket 8
   with one 5-task eval and trained, each held against the unfused model on
   the same weights, with timed steps.
@@ -61,6 +63,7 @@ from m3vit_tpu_torch.ops.expert_ffn import (  # noqa: E402
     expert_ffn_bwd,
     expert_ffn_bwd_plain,
     expert_ffn_fwd,
+    expert_ffn_q_dequant,
     expert_ffn_q_fwd,
     fused_expert_ffn_plain,
     quantized_expert_ffn_plain,
@@ -119,9 +122,6 @@ OPTIM = {"optimizer": "sgd", "scheduler": "poly", "epochs": 100,
 # data sheet (H100 SXM5, at its 700 W limit)
 PEAKS = {"NVIDIA H100 80GB HBM3": (989e12, 3.35e12)}
 REQUESTS = 200           # timed requests per serving cell
-# kernels still on the first (WMMA) design, whose ptxas spills are known;
-# every other kernel must build with 0 bytes spilled and unserialised wgmma
-WMMA_KERNELS = ("expert_ffn_q_fwd",)
 EVAL_REPS = 10
 
 failures = []
@@ -209,15 +209,20 @@ FFN_BWD_PASSES = (("ln_prepass", "ln_prepass_kernel"),
                   ("dx", "ln_dx_kernel"), ("sums", "sum_parts_kernel"))
 
 
-def pass_times(fn):
-    """Device ms per call of fn by pass of K4/K6 (torch.profiler, 5
-    calls), and their sum.  A profile that caught none of the passes
+# ... and K7: its dequantizing pass, then K3's forward on the bf16 banks
+FFN_Q_PASSES = (("dequant", "dequant_banks_kernel"),
+                ("products", "ffn_fwd_kernel"))
+
+
+def pass_times(fn, passes=FFN_BWD_PASSES):
+    """Device ms per call of fn by pass of K4/K6 (or `passes`; torch.profiler,
+    5 calls), and their sum.  A profile that caught none of the passes
     (the profiler now and then returns no device events) is taken again,
     up to three times; None if none of them did."""
     for _ in range(3):
         top = device_profile(fn, 5, top=20)["top"]
         out = {}
-        for name, key in FFN_BWD_PASSES:
+        for name, key in passes:
             ms = sum(r["ms"] for r in top if key in r["name"])
             if ms:
                 out[name] = ms
@@ -500,7 +505,12 @@ def ffn_bwd_phase(peaks, dev):
 
 def ffn_q_phase(peaks, dev):
     """K7 at the int8 serving path's expert shapes: bucket 8 and bucket 1
-    at the eval capacity factor 2.0."""
+    at the eval capacity factor 2.0.  Against its plain version; bit for
+    bit against K3 on the plain-dequantized bf16 banks and against a second
+    run; its dequantizing pass alone (bit for bit against the plain
+    dequantization, and timed against its byte bound), K3 alone on those
+    banks, each pass's device time inside a K7 call, and the memory one
+    call holds (its output and its transient scratch)."""
     g = torch.Generator(device=dev).manual_seed(4)
     cases = []
     for name, E, Ct, d, Hd in (("bucket_8", 16, 4104, 384, 384),
@@ -516,9 +526,19 @@ def ffn_q_phase(peaks, dev):
         diff = got.float() - ref.float()
         err = diff.abs().max().item()
         rel = (diff.norm() / ref.float().norm()).item()
-        check(err <= FFN_ABS_TOL and rel <= FFN_REL_TOL
+        same = torch.equal(got, expert_ffn_q_fwd(*args))
+        w1 = dequantize_weight(q1, s1).bfloat16()
+        w2 = dequantize_weight(q2, s2).bfloat16()
+        dq1, dq2 = expert_ffn_q_dequant(q1, s1, q2, s2)
+        dequant_bitwise = torch.equal(dq1, w1) and torch.equal(dq2, w2)
+        k3_bitwise = torch.equal(got, expert_ffn_fwd(h, w1, b1, w2, b2))
+        check(err <= FFN_ABS_TOL and rel <= FFN_REL_TOL and same
+              and dequant_bitwise and k3_bitwise
               and bool(torch.isfinite(got).all()),
-              f"expert_ffn_q_fwd {name}: max abs err {err}, rel {rel}")
+              f"expert_ffn_q_fwd {name}: max abs err {err}, rel {rel}, "
+              f"bitwise repeatable {same}, dequantizing pass bitwise "
+              f"{dequant_bitwise}, bitwise K3 on its banks {k3_bitwise}")
+        del dq1, dq2
         b1h, b2h = b1.bfloat16()[:, None], b2.bfloat16()[:, None]
 
         def yardstick():   # dequantize -> bmm -> GELU -> bmm
@@ -531,11 +551,27 @@ def ffn_q_phase(peaks, dev):
         nbytes = (2.0 * 2 * E * Ct * d + 1.0 * 2 * E * d * Hd
                   + 4.0 * 2 * E * (Hd + d))
         b_ms, b_by = bound(flops, nbytes, peaks)
+        # the dequantizing pass: int8 banks and scales in, bf16 banks out
+        dq_bytes = (1.0 + 2.0) * 2 * E * d * Hd + 4.0 * E * (Hd + d)
+        ms, host_ms = time_calls(lambda: expert_ffn_q_fwd(*args))
         cases.append({
             "shape": f"{name}: h [{E},{Ct},{d}] bf16 x hidden {Hd}, int8 "
                      "weights",
-            "max_abs_err": err, "rel_err": rel,
-            "ms": time_ms(lambda: expert_ffn_q_fwd(*args)),
+            "max_abs_err": err, "rel_err": rel, "bitwise_repeatable": same,
+            "bitwise_k3_on_dequantized_banks": k3_bitwise,
+            "ms": ms, "host_ms": host_ms, "tflops": flops / ms / 1e9,
+            "passes_ms": pass_times(lambda: expert_ffn_q_fwd(*args),
+                                    FFN_Q_PASSES),
+            "call_memory_mb": call_memory_mb(
+                lambda: expert_ffn_q_fwd(*args)),
+            "dequant": {
+                "bitwise": dequant_bitwise,
+                "ms": time_ms(lambda: expert_ffn_q_dequant(q1, s1, q2, s2),
+                              100),
+                "bound_ms": dq_bytes / peaks[1] * 1e3,
+                "mbytes": dq_bytes / 1e6},
+            "k3_on_dequantized_banks_ms": time_ms(
+                lambda: expert_ffn_fwd(h, w1, b1, w2, b2)),
             "plain_ms": time_ms(lambda: quantized_expert_ffn_plain(*args), 20),
             "library_ms": None,
             "yardstick_dequant_bmm_gelu_bmm_ms": time_ms(yardstick),
@@ -1105,6 +1141,8 @@ def int8_serving_phase(dev):
 
     rng = np.random.RandomState(10)
     rows, requests = [], 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()            # the int8 serving path starts here
     for b in BUCKETS:
         u8 = rng.randint(0, 256, (b, IMG, IMG, 3)).astype(np.uint8)
@@ -1112,10 +1150,14 @@ def int8_serving_phase(dev):
                      "uint8_post": time_requests(raw, u8, True, REQUESTS)})
         requests += REQUESTS + 1
     launches = dict(_build.launches)   # ... and ends here
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
     per_pass = check_launches(
         launches, requests,
         expected_serving_launches(len(model.backbone.blocks), int8=True),
         "int8 serving")
+    # the device's share of a bucket-8 request (p50 above)
+    prof = device_profile(lambda: raw.predict(u8, "semseg", postprocess=True),
+                          5)
 
     # the int8 kernel session against the int8 plain path, and against
     # the float model, at bucket 2 (f32 logits)
@@ -1134,7 +1176,12 @@ def int8_serving_phase(dev):
           f"logit rel err {rel_err}")
     f_agree, f_rel = logit_agreement(k_logits, fsess.predict(imgs, "semseg"))
     emit({"phase": "int8_serving", "rows": rows, "model_build_s": build_s,
-          "warmup_s": warmup_s, "launches": launches,
+          "warmup_s": warmup_s, "peak_memory_mb": peak_mb,
+          "bucket_8_profile": {
+              "device_ms_per_request": prof["device_ms"],
+              "device_idle_frac": 1.0 - prof["device_ms"] / rows[-1][
+                  "uint8_post"]["p50_ms"], "top_kernels": prof["top"]},
+          "launches": launches,
           "backbone_passes": requests, "per_pass": per_pass,
           "kernel_vs_plain": {"bucket": 2, "class_map_agreement": agree,
                               "logit_rel_err": rel_err},
@@ -1258,8 +1305,6 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": per_source, "ptxas": ptxas})
     for k in _build.kernel_names():
-        if k in WMMA_KERNELS:
-            continue
         log = _build.compile_log(k)
         spilled = [ln.strip() for ln in log.splitlines()
                    if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]

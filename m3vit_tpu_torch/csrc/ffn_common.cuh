@@ -1,52 +1,21 @@
 // Pieces shared by the fused FFN kernels (expert_ffn_fwd/bwd,
-// expert_ffn_q_fwd, ln_mlp_fwd/bwd): the CTA shape, 16-byte tile copies
-// and the f32 LayerNorm prologue.
+// expert_ffn_q_fwd, ln_mlp_fwd/bwd): the LayerNorm passes' CTA shape and
+// f32 LayerNorm prologue, and the dynamic shared-memory opt-in.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
 namespace ffn {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int HC = 64;  // hidden units per chunk / tile
 constexpr float SQRT1_2 = 0.70710678118654752f;
-constexpr float INV_SQRT_2PI = 0.39894228040143268f;
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ARow;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> ACol;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BCol;
-
-// Exact-erf GELU in f32 (the TPU kernels use the Abramowitz-Stegun 7.1.26
-// erf, |error| < 1.5e-7, far below the bf16 rounding that follows).
-__device__ __forceinline__ float gelu(float x) {
-  return 0.5f * x * (1.f + erff(x * SQRT1_2));
-}
-
-// Copies a [rows, cols] bf16 tile (row stride `lds` in the source, `ldd` in
-// shared memory) 16 bytes per thread per step; rows >= rows_valid are zero.
-__device__ __forceinline__ void copy_tile(bf16* dst, int ldd, const bf16* src,
-                                          int64_t lds, int rows,
-                                          int rows_valid, int cols, int tid) {
-  const int cpr = cols / 8;
-  for (int i = tid; i < rows * cpr; i += THREADS) {
-    const int r = i / cpr, c = (i % cpr) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid)
-      v = *reinterpret_cast<const uint4*>(src + int64_t(r) * lds + c);
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) = v;
-  }
-}
 
 // LayerNorm of `rows` token rows of x [.., D] (row stride D) into a bf16
 // shared tile: h = bf16((x - mean) * rstd * gamma + beta), the statistics

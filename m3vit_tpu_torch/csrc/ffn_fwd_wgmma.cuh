@@ -1,6 +1,7 @@
 // The fused FFN forward of K3 (expert_ffn_fwd.cu: the expert banks, and the
-// dense MLP at E=1) and K5 (ln_mlp_fwd.cu: the same MLP behind a LayerNorm
-// prologue, with a residual epilogue), for Hopper:
+// dense MLP at E=1; expert_ffn_q_fwd.cu runs it on K7's dequantized banks)
+// and K5 (ln_mlp_fwd.cu: the same MLP behind a LayerNorm prologue, with a
+// residual epilogue), for Hopper:
 //   out[e] = bf16(gelu(h[e] w1[e]^T + b1[e])) w2[e]^T + b2[e]
 // with both products accumulating in f32, bias and GELU in f32 (the TPU
 // kernel's erf) and the hidden activation rounded to bf16 before the second

@@ -60,7 +60,8 @@ class MoEFfnParamsQ(NamedTuple):
 
 def dequantize_ffn_params(q: MoEFfnParamsQ, dtype) -> MoEFfnParams:
     """Float expert weights from an int8 pack, rounded to `dtype`
-    (dispatch.py:74-82; K7 dequantizes in shared memory instead)."""
+    (dispatch.py:74-82; K7 widens the banks itself, into a scratch that
+    lives for one call)."""
     return MoEFfnParams(w1=dequantize_weight(q.w1, q.s1).to(dtype), b1=q.b1,
                         w2=dequantize_weight(q.w2, q.s2).to(dtype), b2=q.b2)
 

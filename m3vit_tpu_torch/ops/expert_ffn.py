@@ -15,7 +15,8 @@ A shape the kernels do not take raises.
 ``quantized_expert_ffn`` (``quantized_expert_ffn`` :354 and
 ``_ffn_q_kernel`` :334) is the same forward on weight-only int8 banks with
 one f32 scale per (expert, out channel): ``csrc/expert_ffn_q_fwd.cu`` on a
-CUDA tensor, ``quantized_expert_ffn_plain`` on the CPU.  It is
+CUDA tensor (each call widens the banks once into a bf16 scratch and runs
+K3's forward on it), ``quantized_expert_ffn_plain`` on the CPU.  It is
 inference-only, as in the JAX package: it raises when autograd would
 record it.
 
@@ -39,6 +40,7 @@ from m3vit_tpu_torch.ops import _build
 NAME = "expert_ffn_fwd"
 BWD_NAME = "expert_ffn_bwd"
 Q_NAME = "expert_ffn_q_fwd"
+DEQUANT_SYMBOL = "expert_ffn_q_dequant"   # K7's first pass alone
 MODEL_DIMS = (128, 384)
 HIDDEN_QUANTUM = 64
 # the backward's tiles (csrc/ffn_bwd.cuh takes them from the build)
@@ -287,21 +289,46 @@ def quantized_expert_ffn(h, w1, s1, b1, w2, s2, b2, *,
 
 
 def expert_ffn_q_fwd(h, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
-    """Launches the int8-weight CUDA kernel; raises on a tensor or shape it
-    does not take.  Scales and biases are read in f32."""
+    """Launches the int8-weight CUDA kernel (a dequantizing pass into a bf16
+    scratch, then K3's forward on it); raises on a tensor or shape it does
+    not take.  Scales and biases are read in f32.  The scratch lives for
+    this call only: the banks stay int8 between calls."""
     E, Ct, d, Hd = _check(Q_NAME, h, {"w1": w1, "b1": b1, "w2": w2,
                                       "b2": b2, "s1": s1, "s2": s2},
                           weight_dtype=torch.int8)
-    s1, s2, b1, b2 = (t.float().contiguous() for t in (s1, s2, b1, b2))
+    s1, s2 = (t.float().contiguous() for t in (s1, s2))
+    b1, b2 = (_f32_aligned(t) for t in (b1, b2))
     out = torch.empty_like(h)
     if E * Ct == 0:
         return out
-    fn = _build.bind(Q_NAME, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    scratch = torch.empty(_scratch_bytes(Q_NAME, E, d, Hd),
+                          dtype=torch.uint8, device=h.device)
+    fn = _build.bind(Q_NAME, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                              + [ctypes.c_void_p])
     err = _build.call(
         fn, h.device, h.data_ptr(), w1.data_ptr(), s1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), E, Ct, d, Hd)
+        out.data_ptr(), scratch.data_ptr(), E, Ct, d, Hd)
     _build.check(err, Q_NAME, f"h {tuple(h.shape)}, hidden {Hd}")
     _build.count_launch(Q_NAME)
     return out
+
+
+def expert_ffn_q_dequant(w1, s1, w2, s2):
+    """K7's dequantizing pass alone, for holding it bit for bit against
+    ``dequantize_weight(q, s).bfloat16()`` and timing it: returns the bf16
+    banks (w1 [E, H, d], w2 [E, d, H]).  Not on the serving path, and not
+    counted as a K7 launch."""
+    E, Hd, d = w1.shape
+    # K7's checks, on a token-less h that carries the banks' E and d
+    _check(DEQUANT_SYMBOL, torch.empty((E, 0, d), dtype=torch.bfloat16,
+                                       device=w1.device),
+           {"w1": w1, "w2": w2, "s1": s1, "s2": s2}, weight_dtype=torch.int8)
+    s1, s2 = (t.float().contiguous() for t in (s1, s2))
+    banks = torch.empty(2, E * Hd * d, dtype=torch.bfloat16, device=w1.device)
+    fn = _build.bind(Q_NAME, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p], symbol=DEQUANT_SYMBOL)
+    err = _build.call(fn, w1.device, w1.data_ptr(), s1.data_ptr(),
+                      w2.data_ptr(), s2.data_ptr(), banks.data_ptr(), E, d, Hd)
+    _build.check(err, DEQUANT_SYMBOL, f"banks {tuple(w1.shape)}")
+    return banks[0].view(E, Hd, d), banks[1].view(E, d, Hd)

@@ -24,9 +24,12 @@ import torch
 from m3vit_tpu_torch.ops import _build
 from m3vit_tpu_torch.ops.expert_ffn import (
     bwd_plan,
+    dequantize_weight,
     expert_ffn_bwd,
     expert_ffn_bwd_plain,
     expert_ffn_fwd,
+    expert_ffn_q_dequant,
+    expert_ffn_q_fwd,
     fused_expert_ffn,
     fused_expert_ffn_plain,
     quantized_expert_ffn,
@@ -289,15 +292,21 @@ def _ffn_close(got, ref):
     assert (diff.norm() / ref.float().norm()).item() <= 1e-2
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("E,C,d,H", [(16, 520, 384, 384), (3, 77, 128, 256)])
-def test_ffn_q_kernel_matches_plain(cuda, E, C, d, H):
-    g = torch.Generator(device=cuda).manual_seed(4)
+def _ffn_q_args(cuda, E, C, d, H, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     r = lambda *s: torch.randn(*s, device=cuda, generator=g)  # noqa: E731
-    h = r(E, C, d).bfloat16()
     q1, s1 = quantize_weight(r(E, H, d) * d ** -0.5)
     q2, s2 = quantize_weight(r(E, d, H) * 0.5 * H ** -0.5)
-    b1, b2 = r(E, H) * 0.1, r(E, d) * 0.1
+    return r(E, C, d).bfloat16(), q1, s1, r(E, H) * 0.1, q2, s2, r(E, d) * 0.1
+
+
+# bucket 1 and bucket 8 of the int8 serving path, a narrow width, and a
+# 40-token tail (one 128-token tile, mostly past the end) at d = 384
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,H", [(16, 520, 384, 384), (3, 77, 128, 256),
+                                     (16, 4104, 384, 384), (2, 40, 384, 384)])
+def test_ffn_q_kernel_matches_plain(cuda, E, C, d, H):
+    h, q1, s1, b1, q2, s2, b2 = _ffn_q_args(cuda, E, C, d, H, 4)
     before = _build.launches.get("expert_ffn_q_fwd", 0)
     with torch.inference_mode():
         got = quantized_expert_ffn(h, q1, s1, b1, q2, s2, b2)
@@ -307,6 +316,52 @@ def test_ffn_q_kernel_matches_plain(cuda, E, C, d, H):
     _ffn_close(got, ref)
     with pytest.raises(RuntimeError, match="inference-only"):
         quantized_expert_ffn(h, q1, s1, b1.requires_grad_(), q2, s2, b2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,d,H", [(16, 384, 384), (3, 128, 256)])
+def test_ffn_q_dequant_pass_is_bitwise_plain(cuda, E, d, H):
+    """K7's dequantizing pass gives dequantize_weight(q, s).bfloat16() bit
+    for bit: rows at -127 and 127 (and both in turn), an all-zero row, and
+    scales from 1e-6 to 1e1."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    banks = []
+    for rows, cols in ((H, d), (d, H)):
+        q = torch.randint(-127, 128, (E, rows, cols), device=cuda,
+                          generator=g).to(torch.int8)
+        q[0, 0], q[0, 1], q[0, 2] = 127, -127, 0
+        q[-1, -1, 0::2], q[-1, -1, 1::2] = 127, -127
+        s = 10.0 ** (7 * torch.rand(E, rows, device=cuda, generator=g) - 6)
+        s[0, :4] = torch.tensor([1e-6, 1e1, 1.0, 0.3], device=cuda)
+        banks += [q, s]
+    q1, s1, q2, s2 = banks
+    w1, w2 = expert_ffn_q_dequant(q1, s1, q2, s2)
+    torch.cuda.synchronize()
+    assert torch.equal(w1, dequantize_weight(q1, s1).bfloat16())
+    assert torch.equal(w2, dequantize_weight(q2, s2).bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,H", [(16, 520, 384, 384), (3, 77, 128, 256)])
+def test_ffn_q_kernel_is_k3_on_plain_banks(cuda, E, C, d, H):
+    """K7 gives K3's bits on the plain-dequantized bf16 banks."""
+    h, q1, s1, b1, q2, s2, b2 = _ffn_q_args(cuda, E, C, d, H, 13)
+    got = expert_ffn_q_fwd(h, q1, s1, b1, q2, s2, b2)
+    ref = expert_ffn_fwd(h, dequantize_weight(q1, s1).bfloat16(), b1,
+                         dequantize_weight(q2, s2).bfloat16(), b2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,H", [(16, 4104, 384, 384), (3, 77, 128, 256)])
+def test_ffn_q_kernel_is_deterministic(cuda, E, C, d, H):
+    """Two runs of K7 on the same inputs give the same bits."""
+    args = _ffn_q_args(cuda, E, C, d, H, 14)
+    first = expert_ffn_q_fwd(*args)
+    second = expert_ffn_q_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def _ln_mlp_args(cuda, S, d, H, seed):

@@ -21,6 +21,8 @@ from m3vit_tpu_torch.ops.expert_ffn import (
     BWD_KSTEP,
     bwd_plan,
     expert_ffn_fwd,
+    expert_ffn_q_dequant,
+    expert_ffn_q_fwd,
     fused_dense_mlp,
     fused_expert_ffn,
 )
@@ -92,6 +94,14 @@ def test_kernel_entry_points_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         expert_ffn_fwd(z, torch.zeros(1, 64, 128), torch.zeros(1, 64),
                        torch.zeros(1, 128, 64), torch.zeros(1, 128))
+    q1, q2 = (torch.zeros(sh, dtype=torch.int8)
+              for sh in ((1, 64, 128), (1, 128, 64)))
+    s1, s2 = torch.ones(1, 64), torch.ones(1, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        expert_ffn_q_fwd(z, q1, s1, torch.zeros(1, 64), q2, s2,
+                         torch.zeros(1, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        expert_ffn_q_dequant(q1, s1, q2, s2)
 
 
 # (E, Ct, d, Hd): the flagship's expert banks at the train capacity and its
