@@ -50,11 +50,28 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from m3vit_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
+from m3vit_tpu_torch.evaluation.orchestrate import _DropGuard  # noqa: E402
 from m3vit_tpu_torch.losses.functions import loss_fn_for_task  # noqa: E402
-from m3vit_tpu_torch.losses.schemes import multi_task_loss  # noqa: E402
-from m3vit_tpu_torch.models import build_flagship, set_use_kernels  # noqa: E402
+from m3vit_tpu_torch.losses.schemes import (  # noqa: E402
+    build_loss_fns,
+    multi_task_loss,
+)
+from m3vit_tpu_torch.models import (  # noqa: E402
+    VisionTransformer,
+    build_flagship,
+    build_model,
+    set_use_kernels,
+)
 from m3vit_tpu_torch.models import vit_moe  # noqa: E402
-from m3vit_tpu_torch.moe.gating import noisy_vmoe_gate, small_topk  # noqa: E402
+from m3vit_tpu_torch.moe.dispatch import (  # noqa: E402
+    compute_capacity,
+    parse_capacity_factor,
+)
+from m3vit_tpu_torch.moe.gating import (  # noqa: E402
+    noisy_gate,
+    noisy_vmoe_gate,
+    small_topk,
+)
 from m3vit_tpu_torch.ops import _build  # noqa: E402
 from m3vit_tpu_torch.ops.expert_ffn import (  # noqa: E402
     BWD_KSTEP,
@@ -87,7 +104,11 @@ from m3vit_tpu_torch.serve.quantize import (  # noqa: E402
     quantize_weight,
 )
 from m3vit_tpu_torch.train.optim import build_optimizer  # noqa: E402
-from m3vit_tpu_torch.train.step import make_train_step  # noqa: E402
+from m3vit_tpu_torch.train.step import (  # noqa: E402
+    make_eval_step,
+    make_one_by_one_train_step,
+    make_train_step,
+)
 
 BUCKETS = (1, 2, 4, 8)
 IMG = 512
@@ -95,6 +116,13 @@ ATTN_TOL = 2e-2          # JAX package's bf16 tolerance (test_flash_attention.py
 LSE_TOL = 1e-3           # K1's lse: f32 sums of the same bf16 products, lse ~ 7-10
 FFN_ABS_TOL, FFN_REL_TOL = 2e-2, 1e-2
 AGREE_MIN, LOGIT_REL_TOL = 0.99, 2e-2
+# the dense ViT and the trained learned-noise-gate flagship serve class maps
+# whose bf16 rounding alone moves more than 1 - AGREE_MIN of the pixels on
+# seeded random weights (the dense ViT at bucket 8: plain bf16 vs plain f32
+# agree on 98.54%, kernel vs plain f32 on 98.54%; on an H100).  There the
+# kernel path's agreement with the plain f32 path must be the plain bf16
+# path's, within F32_AGREE_SLACK, beside the logit limit
+F32_AGREE_SLACK = 2e-3
 # backward kernels vs their plain versions (bf16 outputs; p, dS and da are
 # rounded to bf16 from f32 values summed in another order): relative
 # Frobenius error, and max abs error as a fraction of the largest |ref|
@@ -109,6 +137,16 @@ GRAD_REL_TOL, GRAD_ABS_FRAC = 1e-2, 2e-2
 # at most 0.0094 per group)
 TRAIN_LOSS_REL_TOL, BACKBONE_GRAD_REL_TOL = 1e-4, 2e-2
 TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 8, 10, 10
+# gradient accumulation: the kernel path's gradient after its two
+# micro-batches against the mean of the two micro-batches' gradients taken
+# one by one on the same path, per parameter group, to
+# BACKBONE_GRAD_REL_TOL.  Two such whole-step gradients of one path differ
+# by ~1% (the heads' bilinear-upsampling backward adds with atomics in
+# bf16, and train-mode BatchNorm's backward carries that into the
+# backbone: 1.1-1.2% on an H100), which the run measures and reports; a
+# lost micro-batch or a missing 1/k is off by 50% or more
+ADAM_STEPS, ADAM_LR = 5, 5e-5   # optimizer steps (two micro-batches each)
+DENSE_REQUESTS = 50      # timed bucket-8 requests of the dense ViT
 LN_MLP_REQUESTS = 100    # timed bucket-8 requests of the ln_mlp serving path
 LOSS_WEIGHTS = {"semseg": 1.0, "human_parts": 2.0, "sal": 5.0, "edge": 50.0,
                 "normals": 10.0}
@@ -117,6 +155,31 @@ LOSS_WEIGHTS = {"semseg": 1.0, "human_parts": 2.0, "sal": 5.0, "edge": 50.0,
 OPTIM = {"optimizer": "sgd", "scheduler": "poly", "epochs": 100,
          "optimizer_kwargs": {"lr": 0.002, "momentum": 0.9,
                               "weight_decay": 1e-4}}
+
+# configs/pascal/vit_small_dense_multi_task.yml as a literal (the card's
+# installation may lack PyYAML; tests/test_torch_port_step_paths.py holds it
+# equal to the YAML)
+DENSE_CONFIG = {
+    "setup": "multi_task", "train_db_name": "PASCALContext",
+    "epochs": 100, "optimizer": "sgd",
+    "optimizer_kwargs": {"lr": 0.002, "momentum": 0.9,
+                         "weight_decay": 0.0001},
+    "scheduler": "poly", "model": "baseline", "backbone": "VisionTransformer",
+    "backbone_kwargs": {"model_name": "vit_small_patch16_224",
+                        "img_size": [512, 512], "patch_size": 16,
+                        "embed_dim": 384, "depth": 12, "num_heads": 6,
+                        "mlp_ratio": 4.0, "qkv_bias": True},
+    "head": "VisionTransformerUpHead",
+    "head_kwargs": {"embed_dim": 384, "img_size": [512, 512], "num_conv": 4,
+                    "num_upsampe_layer": 4, "patch_size": 16},
+    "compute_dtype": "bfloat16",
+    "task_dictionary": {"include_semseg": True, "include_human_parts": True,
+                        "include_sal": True, "include_edge": True,
+                        "include_normals": True, "edge_w": 0.95},
+    "loss_kwargs": {"loss_weights": {"semseg": 1.0, "human_parts": 2.0,
+                                     "sal": 5.0, "edge": 50.0,
+                                     "normals": 10.0}},
+}
 
 # (bf16 dense tensor-core FLOP/s, HBM bytes/s) by device name, from NVIDIA's
 # data sheet (H100 SXM5, at its 700 W limit)
@@ -296,10 +359,14 @@ def ffn_phase(peaks, dev):
     g = torch.Generator(device=dev).manual_seed(1)
     cases = []
     # expert banks at the serving capacity (cf 2.0) and the train capacity
-    # (cf 1.25), and the dense MLP at E=1; B=8, 1025 tokens per image
+    # (cf 1.25), the dense MLP at E=1, and the expert banks at the 5-task
+    # eval's no-drop capacity (every token); B=8, 1025 tokens per image
+    nodrop = compute_capacity(8 * 1025, 4, 16, parse_capacity_factor("nodrop"))
     for name, E, Ct, d, Hd in (("experts", 16, 4104, 384, 384),
                                ("dense_mlp", 1, 8200, 384, 1536),
-                               ("experts_train", 16, 2568, 384, 384)):
+                               ("experts_train", 16, 2568, 384, 384),
+                               ("experts_eval_nodrop", 16, nodrop, 384,
+                                384)):
         r = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
         # unit-scale tokens (LayerNorm output) and fan-in scaled weights
         h = r(E, Ct, d).bfloat16()
@@ -813,10 +880,11 @@ class RoutingTape:
     """Records every gate's top-(k+1) experts during one forward and
     replays them, in call order, during another, so that two forwards whose
     roundings differ route every token alike.  Replayed gate values are the
-    replaying forward's own softmax probabilities at the recorded experts,
-    so the gates stay differentiable.  Counts the tokens whose own top-k set
-    differs from the recording.  Installed in place of the MoE block's gate
-    function; for this script's comparisons only."""
+    replaying forward's own scores at the recorded experts (the VMoE gate's
+    softmax probabilities; the learned-noise gate's logits, its k scores
+    renormalised), so the gates stay differentiable.  Counts the tokens
+    whose own top-k set differs from the recording.  Installed in place of
+    the MoE block's gate functions; for this script's comparisons only."""
 
     def __init__(self):
         self.tape, self.replaying, self.pos = [], False, 0
@@ -824,22 +892,21 @@ class RoutingTape:
 
     def __enter__(self):
         vit_moe.noisy_vmoe_gate = self.gate
+        vit_moe.noisy_gate = self.learned_gate
         self.pos = 0
         return self
 
     def __exit__(self, *exc):
         vit_moe.noisy_vmoe_gate = noisy_vmoe_gate
+        vit_moe.noisy_gate = noisy_gate
         if not exc[0] and self.replaying and self.pos != len(self.tape):
             raise RuntimeError(f"replayed {self.pos} of {len(self.tape)} "
                                "gate calls")
         self.replaying = True
 
-    def gate(self, gate_inp, w_gate, *, top_k, noise_std=1.0, noise=None):
-        out = noisy_vmoe_gate(gate_inp, w_gate, top_k=top_k,
-                              noise_std=noise_std, noise=noise)
-        probs = torch.softmax(out.noisy_logits, dim=-1)
+    def _tape(self, out, scores, top_k, renormalise: bool):
         if not self.replaying:
-            self.tape.append(small_topk(probs.detach(),
+            self.tape.append(small_topk(scores.detach(),
                                         out.top_logits.shape[1])[1])
             return out
         idx = self.tape[self.pos]
@@ -848,9 +915,24 @@ class RoutingTape:
         self.rerouted += int((own != idx[:, :top_k].sort(dim=-1).values)
                              .any(dim=-1).sum())
         self.tokens += idx.shape[0]
-        top = probs.gather(1, idx)
-        return out._replace(top_k_indices=idx[:, :top_k],
-                            top_k_gates=top[:, :top_k], top_logits=top)
+        top = scores.gather(1, idx)
+        if not renormalise:
+            return out._replace(top_k_indices=idx[:, :top_k],
+                                top_k_gates=top[:, :top_k], top_logits=top)
+        gates = torch.softmax(top[:, :top_k], dim=-1)
+        return out._replace(
+            top_k_indices=idx[:, :top_k], top_k_gates=gates, top_logits=top,
+            gates=torch.zeros_like(scores).scatter(1, idx[:, :top_k], gates))
+
+    def gate(self, gate_inp, w_gate, *, top_k, noise_std=1.0, noise=None):
+        out = noisy_vmoe_gate(gate_inp, w_gate, top_k=top_k,
+                              noise_std=noise_std, noise=noise)
+        return self._tape(out, torch.softmax(out.noisy_logits, dim=-1),
+                          top_k, False)
+
+    def learned_gate(self, gate_inp, w_gate, w_noise, *, top_k, noise=None):
+        out = noisy_gate(gate_inp, w_gate, w_noise, top_k=top_k, noise=noise)
+        return self._tape(out, out.noisy_logits, top_k, True)
 
 
 def expected_train_launches(depth: int, num_tasks: int,
@@ -858,7 +940,8 @@ def expected_train_launches(depth: int, num_tasks: int,
     """Launches per shared-prefix train step (vit_moe.py:1064-1091): block
     0 and block 1's attention once, the rest once per task; even blocks
     dense (K3/K4 at E=1, or K5/K6 with ln_mlp), odd blocks MoE; each
-    forward launch has one backward launch."""
+    forward launch has one backward launch.  With one task, those of one
+    whole backbone pass (one K3 per block: the dense ViT's too)."""
     attn = 2 + (depth - 2) * num_tasks
     dense = 1 + ((depth + 1) // 2 - 1) * num_tasks
     moe = depth // 2 * num_tasks
@@ -874,7 +957,8 @@ def expected_train_launches(depth: int, num_tasks: int,
 def expected_serving_launches(depth: int, ln_mlp: bool = False,
                               int8: bool = False):
     """Launches per single-task backbone pass: one attention per block,
-    one dense MLP per even block, one expert FFN per odd block."""
+    one dense MLP per even block, one expert FFN per odd block (one K3 per
+    block: the dense ViT's too)."""
     dense, moe = (depth + 1) // 2, depth // 2
     out = {"flash_attention_fwd": depth}
     if ln_mlp:
@@ -909,12 +993,18 @@ def rel_by_group(a, b):
     return {g: (x / y) ** 0.5 for g, (x, y) in sq.items()}
 
 
-def train_setup(dev, **knobs):
-    """The shared-prefix flagship (seed 0, `knobs` passed to
-    build_flagship), its B=8 synthetic batch, loss functions, a copy of
-    its initial state and the random cotangent for backbone runs."""
-    model, tasks = build_flagship(device=dev, seed=0, shared_prefix=True,
-                                  **knobs)
+def param_grads(model):
+    return {n: p.grad.detach().float().clone()
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def train_setup(dev, shared_prefix: bool = True, **knobs):
+    """The flagship (seed 0, shared prefix unless asked otherwise, `knobs`
+    passed to build_flagship), its B=8 synthetic batch, loss functions, a
+    copy of its initial state and the random cotangent for shared-prefix
+    backbone runs."""
+    model, tasks = build_flagship(device=dev, seed=0,
+                                  shared_prefix=shared_prefix, **knobs)
     names = [t.name for t in tasks]
     batch = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
                             tasks, TRAIN_BATCH, (IMG, IMG))
@@ -950,9 +1040,13 @@ def make_grad_run(dev, names, batch, loss_fns, init, cotangent):
         noise = torch.Generator(device=dev).manual_seed(1)
         feats, extra, loss = [], {}, float("nan")
         hook = m.backbone.register_forward_hook(
-            lambda mod, args, out: feats.append(out[0]))
+            lambda mod, args, out: feats.append(
+                out[0] if isinstance(out, tuple) else out))
         with tape or contextlib.nullcontext():
-            if mode == "backbone":
+            if mode == "backbone" and isinstance(m.backbone,
+                                                 VisionTransformer):
+                m.backbone(batch["image"]).float().backward(cotangent)
+            elif mode == "backbone":
                 m.backbone(batch["image"], list(range(len(names))), noise,
                            shared_prefix=True)[0].float().backward(cotangent)
             else:
@@ -971,21 +1065,21 @@ def make_grad_run(dev, names, batch, loss_fns, init, cotangent):
                              nrm / (nrm.norm(dim=1, keepdim=True) + 1e-12)
                              - batch["normals"])}
         hook.remove()
-        return loss, {n: p.grad.detach().float().clone()
-                      for n, p in m.named_parameters()
-                      if p.grad is not None}, extra
+        return loss, param_grads(m), extra
 
     return run
 
 
-def timed_steps(model, names, loss_fns, batch, dev, expected, what: str):
-    """TIMED_STEPS train steps on one batch, each between CUDA events, with
-    the kernels' launches counted over them and held to `expected` per
-    step; returns (the phase's readings, the launches)."""
+def timed_steps(model, names, loss_fns, batch, dev, expected, what: str,
+                make_step=make_train_step, loss_falls: bool = False):
+    """TIMED_STEPS train steps (`make_step`'s, SGD) on one batch, each
+    between CUDA events, with the kernels' launches counted over them and
+    held to `expected` per step, and with loss_falls the loss lower after
+    them than at their first; returns (the phase's readings, the
+    launches)."""
     opt, schedule = build_optimizer(model.parameters(), OPTIM,
                                     steps_per_epoch=100)
-    step = make_train_step(model, names, loss_fns, LOSS_WEIGHTS, opt,
-                           schedule)
+    step = make_step(model, names, loss_fns, LOSS_WEIGHTS, opt, schedule)
     noise = torch.Generator(device=dev).manual_seed(2)
     for _ in range(2):   # warm-up
         step(batch, noise)
@@ -995,15 +1089,23 @@ def timed_steps(model, names, loss_fns, batch, dev, expected, what: str):
            torch.cuda.Event(enable_timing=True)) for _ in range(TIMED_STEPS)]
     _build.reset_launches()            # the train path starts here
     t_window = time.perf_counter()
+    metrics = []
     for a, b in ev:
         a.record()
-        m = step(batch, noise)
+        metrics.append(step(batch, noise))
         b.record()
     torch.cuda.synchronize()
     window_s = time.perf_counter() - t_window
     launches = dict(_build.launches)   # ... and ends here
-    check(bool(torch.isfinite(m["loss_total_with_cv"])),
-          f"{what} timed step loss")
+    key = "loss_total_with_cv" if "loss_total_with_cv" in metrics[0] \
+        else "loss_total"
+    losses = [m[key].item() for m in metrics]
+    m = metrics[-1]
+    check(all(np.isfinite(losses)), f"{what} timed step loss {losses}")
+    if loss_falls:
+        check(losses[-1] < losses[0],
+              f"{what}: losses over {TIMED_STEPS} timed steps do not fall: "
+              f"{losses}")
     per_step = check_launches(launches, TIMED_STEPS, expected, what)
     step_ms = [a.elapsed_time(b) for a, b in ev]
     median = float(np.median(step_ms))
@@ -1015,8 +1117,9 @@ def timed_steps(model, names, loss_fns, batch, dev, expected, what: str):
             "top_kernels": prof["top"],
             "img_per_s": TIMED_STEPS * TRAIN_BATCH / window_s,
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches_per_step": per_step,
-            "moe_dropped_frac": m["moe_dropped_frac"].item()}, launches
+            "launches_per_step": per_step, "losses": losses,
+            **({"moe_dropped_frac": m["moe_dropped_frac"].item()}
+               if "moe_dropped_frac" in m else {})}, launches
 
 
 def train_phase(dev):
@@ -1279,7 +1382,422 @@ def ln_mlp_path_phase(dev):
     return serve_launches, train_launches
 
 
+def serving_vs_plain_and_f32(model, ref, names, imgs, what: str):
+    """One request of `imgs` (bucket = its size) on `model`'s kernel and
+    plain paths and on `ref`, the same weights computing in f32 on the
+    plain path: logits kernel vs plain to LOGIT_REL_TOL, and the kernel
+    path's class-map agreement with f32 at least the plain bf16 path's less
+    F32_AGREE_SLACK."""
+    def predict(m):
+        return InferenceSession(m, names, (IMG, IMG), buckets=(len(imgs),),
+                                device=next(m.parameters()).device
+                                ).predict(imgs, "semseg")
+
+    k_logits = predict(model)
+    set_use_kernels(model, False)
+    p_logits = predict(model)
+    set_use_kernels(model, True)
+    set_use_kernels(ref, False)
+    r_logits = predict(ref)
+    agree, rel_err = logit_agreement(k_logits, p_logits)
+    k32, p32 = (logit_agreement(x, r_logits)[0] for x in (k_logits,
+                                                          p_logits))
+    check(rel_err <= LOGIT_REL_TOL and k32 >= p32 - F32_AGREE_SLACK,
+          f"{what} kernel vs plain at bucket {len(imgs)}: logit rel err "
+          f"{rel_err} (limit {LOGIT_REL_TOL}); class-map agreement with f32 "
+          f"{k32}, plain bf16's {p32} (slack {F32_AGREE_SLACK})")
+    return {"bucket": len(imgs), "class_map_agreement": agree,
+            "logit_rel_err": rel_err, "class_map_agreement_with_f32": {
+                "kernel": k32, "plain": p32}}
+
+
+def one_by_one_phase(dev):
+    """--one_by_one (train/step.py:make_one_by_one_train_step): the
+    flagship without the shared prefix and with gate noise 0.  One
+    one-by-one step against one joint multi-gate step on the same weights
+    and batch (replaying the joint step's routing): the loss, and every
+    parameter group's gradient to BACKBONE_GRAD_REL_TOL; the same
+    one-by-one step on the plain path (loss); each step's peak device
+    memory, the one-by-one's lower; then timed one-by-one steps that lower
+    the loss, launches counted per step."""
+    t0 = time.perf_counter()
+    model, names, batch, loss_fns, init, _ = train_setup(
+        dev, shared_prefix=False, vmoe_noisy_std=0.0)
+    build_s = time.perf_counter() - t0
+    depth = len(model.backbone.blocks)
+    opt, schedule = build_optimizer(model.parameters(), OPTIM,
+                                    steps_per_epoch=100)
+    joint = make_train_step(model, names, loss_fns, LOSS_WEIGHTS, opt,
+                            schedule)
+    obo = make_one_by_one_train_step(model, names, loss_fns, LOSS_WEIGHTS,
+                                     opt, schedule)
+
+    def one(step, kernels, tape):
+        """One step from `init`: (loss, parameter grads)."""
+        model.load_state_dict(init)
+        set_use_kernels(model, kernels)
+        with tape:
+            m = step(batch)
+        key = "loss_total_with_cv" if "loss_total_with_cv" in m \
+            else "loss_total"
+        return m[key].item(), param_grads(model)
+
+    tape = RoutingTape()
+    _build.reset_launches()
+    j_loss, j_grads = one(joint, True, tape)
+    joint_launches = dict(_build.launches)
+    _build.reset_launches()
+    o_loss, o_grads = one(obo, True, tape)
+    obo_launches = dict(_build.launches)
+    rerouted = {"one_by_one": tape.rerouted / tape.tokens}
+    tape.rerouted = tape.tokens = 0
+    before = dict(_build.launches)
+    p_loss, p_grads = one(obo, False, tape)
+    check(dict(_build.launches) == before,
+          "plain one-by-one step launched a kernel")
+    rerouted["one_by_one_plain"] = tape.rerouted / tape.tokens
+    set_use_kernels(model, True)
+    # every task's whole backbone pass, each with its backward
+    expected = {k: len(names) * v for k, v in
+                expected_train_launches(depth, 1).items()}
+    for what, launches in (("joint", joint_launches),
+                           ("one_by_one", obo_launches)):
+        check_launches(launches, 1, expected, f"{what} step (no prefix)")
+    vs_joint = rel_by_group(o_grads, j_grads)
+    vs_plain = rel_by_group(o_grads, p_grads)
+    loss_rel = abs(o_loss - j_loss) / abs(j_loss)
+    plain_rel = abs(o_loss - p_loss) / abs(p_loss)
+    check(np.isfinite(o_loss) and loss_rel <= TRAIN_LOSS_REL_TOL
+          and plain_rel <= TRAIN_LOSS_REL_TOL
+          and all(v <= BACKBONE_GRAD_REL_TOL for v in vs_joint.values()),
+          f"one-by-one vs joint step: loss {o_loss} vs {j_loss}, plain "
+          f"{p_loss} (rel limit {TRAIN_LOSS_REL_TOL}); grad rel err by group "
+          f"{vs_joint} (limit {BACKBONE_GRAD_REL_TOL})")
+    del j_grads, o_grads, p_grads
+
+    # peak device memory of each kind of step, both after a warm-up (the
+    # momentum buffers exist) and with the same weights and optimizer
+    peaks = {}
+    for what, step in (("one_by_one", obo), ("joint", joint)):
+        model.load_state_dict(init)
+        step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(batch)
+        torch.cuda.synchronize()
+        peaks[what] = torch.cuda.max_memory_allocated() / 1e9
+    check(peaks["one_by_one"] < peaks["joint"],
+          f"one-by-one peak memory {peaks['one_by_one']} GB is not below the "
+          f"joint step's {peaks['joint']} GB")
+    emit({"phase": "one_by_one_vs_joint", "loss_one_by_one": o_loss,
+          "loss_joint": j_loss, "loss_one_by_one_plain": p_loss,
+          "loss_rel_err": loss_rel, "plain_loss_rel_err": plain_rel,
+          "grad_rel_err_vs_joint": vs_joint,
+          "grad_rel_err_kernel_vs_plain": vs_plain,
+          "rerouted_token_frac": rerouted,
+          "launches_per_step": expected,
+          "max_memory_allocated_gb": peaks, "model_build_s": build_s})
+    model.load_state_dict(init)
+    readings, launches = timed_steps(
+        model, names, loss_fns, batch, dev, expected, "one_by_one",
+        make_step=make_one_by_one_train_step, loss_falls=True)
+    emit({"phase": "one_by_one_step", **readings})
+    return launches
+
+
+def accumulation_phase(dev):
+    """accumulation_steps 2 (optax.MultiSteps in the JAX package): the
+    train-phase flagship's B=8 batch as two micro-batches of 4 and one SGD
+    step, kernel against plain on the same weights, batch and gate noise
+    (the plain path replaying the kernel path's routing): each
+    micro-batch's loss; on the kernel path the gradient it steps on is the
+    mean of the two micro-batches' own gradients.  Then ADAM_STEPS
+    optimizer steps each of Adam and AdamW (two micro-batches each) that
+    lower the loss."""
+    model, names, batch, loss_fns, init, _ = train_setup(dev)
+    depth = len(model.backbone.blocks)
+    half = TRAIN_BATCH // 2
+    micro = [{k: v[i * half:(i + 1) * half] for k, v in batch.items()}
+             for i in range(2)]
+
+    def accumulate(kernels, tape=None, optim=OPTIM, steps=1):
+        """`steps` optimizer steps of two micro-batches from `init`: the
+        micro-batch losses and the last step's gradients."""
+        model.load_state_dict(init)
+        set_use_kernels(model, kernels)
+        opt, schedule = build_optimizer(
+            model.parameters(), {**optim, "accumulation_steps": 2},
+            steps_per_epoch=100)
+        step = make_train_step(model, names, loss_fns, LOSS_WEIGHTS, opt,
+                               schedule, accumulation_steps=2)
+        noise = torch.Generator(device=dev).manual_seed(1)
+        with tape or contextlib.nullcontext():
+            losses = [step(mb, noise)["loss_total_with_cv"].item()
+                      for _ in range(steps) for mb in micro]
+        return losses, param_grads(model)
+
+    tape = RoutingTape()
+    _build.reset_launches()
+    k_losses, k_grads = accumulate(True, tape)
+    launches = dict(_build.launches)
+    before = dict(_build.launches)
+    p_losses, p_grads = accumulate(False, tape)
+    check(dict(_build.launches) == before,
+          "plain accumulation launched a kernel")
+    set_use_kernels(model, True)
+    per_step = check_launches(
+        launches, 1, {k: 2 * v for k, v in expected_train_launches(
+            depth, len(names)).items()}, "accumulation (2 micro-batches)")
+    def micro_batch_mean():
+        """The mean of the micro-batches' own gradients, kernel path."""
+        model.load_state_dict(init)
+        model.train()
+        noise = torch.Generator(device=dev).manual_seed(1)
+        mean = {}
+        for mb in micro:
+            model.zero_grad(set_to_none=True)
+            pred, cv, _ = model(mb["image"], noise=noise)
+            (multi_task_loss(pred, mb, names, loss_fns, LOSS_WEIGHTS)[
+                "total"] + 0.01 * cv).backward()
+            for n, g in param_grads(model).items():
+                mean[n] = mean.get(n, 0.0) + 0.5 * g
+        return mean
+
+    mean = micro_batch_mean()
+    accum_rel = rel_by_group(k_grads, mean)
+    run_to_run = rel_by_group(micro_batch_mean(), mean)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses)]
+    check(all(np.isfinite(k_losses))
+          and all(r <= TRAIN_LOSS_REL_TOL for r in loss_rel)
+          and all(v <= BACKBONE_GRAD_REL_TOL for v in accum_rel.values()),
+          f"accumulation: micro-batch losses {k_losses} vs plain {p_losses} "
+          f"(rel limit {TRAIN_LOSS_REL_TOL}); gradient vs the mean of the "
+          f"micro-batch gradients {accum_rel} (limit {BACKBONE_GRAD_REL_TOL}"
+          f"; two runs of that mean differ by {run_to_run})")
+    vs_plain = rel_by_group(k_grads, p_grads)
+    del k_grads, p_grads, mean
+
+    adam = {}
+    for name in ("adam", "adamw"):
+        optim = {**OPTIM, "optimizer": name,
+                 "optimizer_kwargs": {"lr": ADAM_LR, "weight_decay": 1e-4}}
+        losses = accumulate(True, optim=optim, steps=ADAM_STEPS)[0]
+        per_opt_step = [(a + b) / 2 for a, b in zip(losses[::2],
+                                                    losses[1::2])]
+        check(all(np.isfinite(losses))
+              and per_opt_step[-1] < per_opt_step[0],
+              f"{name}: losses over {ADAM_STEPS} steps do not fall: "
+              f"{per_opt_step}")
+        adam[name] = per_opt_step
+    emit({"phase": "accumulation", "micro_batch": half,
+          "accumulation_steps": 2, "losses_kernel": k_losses,
+          "losses_plain": p_losses, "loss_rel_err": loss_rel,
+          "grad_rel_err_vs_micro_batch_mean": accum_rel,
+          "micro_batch_mean_run_to_run_rel_err": run_to_run,
+          "grad_rel_err_kernel_vs_plain_replayed": vs_plain,
+          "rerouted_token_frac": tape.rerouted / tape.tokens,
+          "launches": launches, "launches_per_step": per_step,
+          "adam_lr": ADAM_LR, "losses_per_optimizer_step": adam})
+    return launches
+
+
+def noisy_gate_phase(dev):
+    """moe_gate_type "noisy" (the learned-noise gate): the train-phase
+    flagship with it, a train step kernel against plain on the same
+    weights, batch and [T, E] normals (the loss; the plain path replaying
+    the kernel path's routing, the backbone alone under a fixed cotangent
+    to BACKBONE_GRAD_REL_TOL), timed steps that lower the loss, and a
+    bucket-8 request held against the plain path."""
+    t0 = time.perf_counter()
+    model, names, batch, loss_fns, init, cotangent = train_setup(
+        dev, moe_gate_type="noisy")
+    build_s = time.perf_counter() - t0
+    depth = len(model.backbone.blocks)
+    run = make_grad_run(dev, names, batch, loss_fns, init, cotangent)
+    step_tape, backbone_tape = RoutingTape(), RoutingTape()
+    before = dict(_build.launches)
+    k_loss = run(model, True, step_tape)[0]
+    k_bb = run(model, True, backbone_tape, "backbone")[1]
+    mid = dict(_build.launches)
+    p_loss = run(model, False, step_tape)[0]
+    p_bb = run(model, False, backbone_tape, "backbone")[1]
+    check(dict(_build.launches) == mid and mid != before,
+          "noisy gate: the plain runs launched a kernel, or the kernel runs "
+          "none")
+    backbone = rel_by_group(k_bb, p_bb)
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    check(np.isfinite(k_loss) and loss_rel <= TRAIN_LOSS_REL_TOL
+          and all(v <= BACKBONE_GRAD_REL_TOL for v in backbone.values()),
+          f"noisy gate train kernel vs plain: loss {k_loss} vs {p_loss} (rel "
+          f"limit {TRAIN_LOSS_REL_TOL}); backbone grad rel err under a fixed "
+          f"cotangent {backbone} (limit {BACKBONE_GRAD_REL_TOL})")
+    del k_bb, p_bb
+    set_use_kernels(model, True)
+    model.load_state_dict(init)
+    readings, launches = timed_steps(
+        model, names, loss_fns, batch, dev,
+        expected_train_launches(depth, len(names)), "noisy gate train",
+        loss_falls=True)
+
+    # a bucket-8 request, kernel against plain, on the trained weights
+    model.eval()
+    ref, _ = build_flagship(device=dev, seed=0, moe_gate_type="noisy",
+                            dtype=torch.float32)
+    ref.load_state_dict(model.state_dict())
+    serving = serving_vs_plain_and_f32(
+        model, ref, names,
+        np.random.RandomState(13).randn(8, IMG, IMG, 3).astype(np.float32),
+        "noisy gate")
+    del ref
+    emit({"phase": "noisy_gate", "loss_kernel": k_loss, "loss_plain": p_loss,
+          "loss_rel_err": loss_rel,
+          "backbone_cotangent_replayed": {"grad_rel_err": backbone},
+          "rerouted_token_frac": backbone_tape.rerouted / backbone_tape.tokens,
+          "train_step": readings,
+          "serving_kernel_vs_plain": serving, "model_build_s": build_s})
+    return launches
+
+
+def dense_phase(dev):
+    """The dense ViT-small multi-task model that build_model makes from
+    configs/pascal/vit_small_dense_multi_task.yml (DENSE_CONFIG): uint8
+    requests at bucket 8 (launches counted per pass), a bucket-8 request
+    kernel against plain, a train step kernel against plain (the loss; the
+    backbone alone under a fixed cotangent to BACKBONE_GRAD_REL_TOL) and
+    timed steps that lower the loss, launches counted per step.  Returns
+    the launches of its serving and of its train path."""
+    t0 = time.perf_counter()
+    model, tasks = build_model(DENSE_CONFIG, device=dev, seed=0)
+    build_s = time.perf_counter() - t0
+    names = [t.name for t in tasks]
+    depth = len(model.backbone.blocks)
+    raw = InferenceSession(model, names, (IMG, IMG), buckets=(8,),
+                           raw_uint8_input=True, device=dev)
+    raw.warmup(tasks=["semseg"], postprocess=True)
+    rng = np.random.RandomState(14)
+    u8 = rng.randint(0, 256, (8, IMG, IMG, 3)).astype(np.uint8)
+    _build.reset_launches()            # the dense serving path starts here
+    row = time_requests(raw, u8, True, DENSE_REQUESTS)
+    serve_launches = dict(_build.launches)   # ... and ends here
+    serve_per_pass = check_launches(
+        serve_launches, DENSE_REQUESTS + 1,
+        expected_serving_launches(depth), "dense serving")
+    ref, _ = build_model({**DENSE_CONFIG, "compute_dtype": "float32"},
+                         device=dev, seed=0)
+    serving = serving_vs_plain_and_f32(
+        model, ref, names, rng.randn(8, IMG, IMG, 3).astype(np.float32),
+        "dense")
+    del ref
+
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
+                            tasks, TRAIN_BATCH, (IMG, IMG))
+    loss_fns = build_loss_fns(DENSE_CONFIG)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    cotangent = torch.randn((TRAIN_BATCH,) + tuple(
+        model.backbone.pos_embed.shape[1:]), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(3))
+    run = make_grad_run(dev, names, batch, loss_fns, init, cotangent)
+    k_loss = run(model, True)[0]
+    k_bb = run(model, True, None, "backbone")[1]
+    before = dict(_build.launches)
+    p_loss = run(model, False)[0]
+    p_bb = run(model, False, None, "backbone")[1]
+    check(dict(_build.launches) == before,
+          "dense plain runs launched a kernel")
+    backbone = rel_by_group(k_bb, p_bb)
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    check(np.isfinite(k_loss) and loss_rel <= TRAIN_LOSS_REL_TOL
+          and all(v <= BACKBONE_GRAD_REL_TOL for v in backbone.values()),
+          f"dense train kernel vs plain: loss {k_loss} vs {p_loss} (rel limit "
+          f"{TRAIN_LOSS_REL_TOL}); backbone grad rel err under a fixed "
+          f"cotangent {backbone} (limit {BACKBONE_GRAD_REL_TOL})")
+    del k_bb, p_bb
+    set_use_kernels(model, True)
+    model.load_state_dict(init)
+    readings, train_launches = timed_steps(
+        model, names, loss_fns, batch, dev,
+        expected_train_launches(depth, 1), "dense train", loss_falls=True)
+    emit({"phase": "dense", "config": "configs/pascal/"
+          "vit_small_dense_multi_task.yml", "model_build_s": build_s,
+          "params": sum(p.numel() for p in model.parameters()),
+          "serving": {"bucket": 8, "uint8_post": row,
+                      "launches_per_pass": serve_per_pass,
+                      "kernel_vs_plain": serving},
+          "train_kernel_vs_plain": {
+              "loss_kernel": k_loss, "loss_plain": p_loss,
+              "loss_rel_err": loss_rel,
+              "backbone_cotangent": {"grad_rel_err": backbone}},
+          "train_step": readings})
+    return serve_launches, train_launches
+
+
+def eval_nodrop_phase(dev):
+    """The flagship's 5-task eval step with stats (train/step.py:
+    make_eval_step) at eval capacity factor "nodrop" (K3 at every token's
+    capacity) through the eval's no-drop guard (_DropGuard): 0 drops,
+    launches counted per task pass, the outputs against the plain path;
+    then the dropped fraction of the same eval at cf 2.0 (read, not
+    guarded)."""
+    model, tasks = build_flagship(
+        device=dev, seed=0, eval_capacity_factor=parse_capacity_factor(
+            "nodrop"))
+    names = [t.name for t in tasks]
+    depth = len(model.backbone.blocks)
+    x = torch.randn(8, 3, IMG, IMG, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(12)).contiguous(
+            memory_format=torch.channels_last)
+    batch = {"image": x}
+    step = make_eval_step(model, names, with_stats=True)
+    step(batch)
+    guard = _DropGuard({})
+    torch.cuda.synchronize()
+    _build.reset_launches()            # the eval path starts here
+    t0 = time.perf_counter()
+    for _ in range(EVAL_REPS):
+        pred, stats = step(batch)
+        guard.update(stats)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) / EVAL_REPS * 1e3
+    launches = dict(_build.launches)   # ... and ends here
+    per_pass = check_launches(launches, len(names) * EVAL_REPS,
+                              expected_serving_launches(depth),
+                              "eval nodrop")
+    guard.check()                      # raises if any slot was dropped
+    dropped = float(guard.total)
+    check(dropped == 0.0 and all(
+        pred[t.name].shape == (8, t.num_output, IMG, IMG)
+        and bool(torch.isfinite(pred[t.name]).all()) for t in tasks),
+          f"eval nodrop: dropped {dropped}, outputs "
+          f"{ {n: tuple(v.shape) for n, v in pred.items()} }")
+    set_use_kernels(model, False)
+    plain, _ = step(batch)
+    set_use_kernels(model, True)
+    eval_rel = {n: rel(pred[n], plain[n]) for n in names}
+    check(all(v <= LOGIT_REL_TOL for v in eval_rel.values()),
+          f"eval nodrop kernel vs plain: rel err {eval_rel} (limit "
+          f"{LOGIT_REL_TOL})")
+    for m in model.modules():
+        if isinstance(m, vit_moe.MoEMlp):
+            m.eval_capacity_factor = 2.0
+    _, st2 = step(batch)
+    T = 8 * model.backbone.pos_embed.shape[1]
+    emit({"phase": "eval_nodrop", "batch": 8, "ms": eval_ms,
+          "img_per_s": 8 / eval_ms * 1e3,
+          "capacity": compute_capacity(T, 4, 16, parse_capacity_factor(
+              "nodrop")),
+          "dropped_slot_fraction_sum": dropped,
+          "launches": launches, "task_passes": len(names) * EVAL_REPS,
+          "per_pass": per_pass, "kernel_vs_plain_rel_err": eval_rel,
+          "gate_entropy_mean": (stats["gate_entropy_sum"]
+                                / stats["gate_token_count"]).item(),
+          "cf_2_dropped_slot_fraction": (st2["dropped_slot_fraction"]
+                                         / st2["moe_stat_count"]).item(),
+          "cf_2_capacity": compute_capacity(T, 4, 16, 2.0)})
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1323,21 +1841,29 @@ def main() -> int:
     paths = {"serving": serving_phase(dev), "train": train_phase(dev),
              "int8_serving": int8_serving_phase(dev)}
     paths["ln_mlp_serving"], paths["ln_mlp_train"] = ln_mlp_path_phase(dev)
+    for path, phase in (("one_by_one", one_by_one_phase),
+                        ("accumulation", accumulation_phase),
+                        ("noisy_gate_train", noisy_gate_phase),
+                        ("eval_nodrop", eval_nodrop_phase)):
+        paths[path] = phase(dev)
+        torch.cuda.empty_cache()
+    paths["dense_serving"], paths["dense_train"] = dense_phase(dev)
 
     kernels = []
     # kernel, its TPU kernel, its phase's cases, its paths (the first is
     # the one whose count is "launches")
+    train_paths = ("train", "ln_mlp_train", "one_by_one", "accumulation",
+                   "noisy_gate_train", "dense_train")
+    fwd_paths = train_paths[:1] + ("serving", "int8_serving",
+                                   "ln_mlp_serving") + train_paths[1:] + (
+        "eval_nodrop", "dense_serving")
     for kname, line, cases, on in (
             ("flash_attention_fwd", "flash_attention.py:103", attn,
-             ("train", "serving", "int8_serving", "ln_mlp_serving",
-              "ln_mlp_train")),
+             fwd_paths),
             ("flash_attention_bwd", "flash_attention.py:125", attn_bwd,
-             ("train", "ln_mlp_train")),
-            ("expert_ffn_fwd", "expert_ffn.py:145", ffn,
-             ("train", "serving", "int8_serving", "ln_mlp_serving",
-              "ln_mlp_train")),
-            ("expert_ffn_bwd", "expert_ffn.py:203", ffn_bwd,
-             ("train", "ln_mlp_train")),
+             train_paths),
+            ("expert_ffn_fwd", "expert_ffn.py:145", ffn, fwd_paths),
+            ("expert_ffn_bwd", "expert_ffn.py:203", ffn_bwd, train_paths),
             ("ln_mlp_fwd", "ln_mlp.py:129", ln_fwd,
              ("ln_mlp_train", "ln_mlp_serving")),
             ("ln_mlp_bwd", "ln_mlp.py:183", ln_bwd, ("ln_mlp_train",)),
@@ -1357,6 +1883,7 @@ def main() -> int:
                                          "bound_by", "library_ms")},
             "cases": cases,
         })
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",

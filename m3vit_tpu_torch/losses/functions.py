@@ -1,5 +1,5 @@
 """Per-task loss functions (counterpart of m3vit_tpu/losses/functions.py
-:26-128, 145-158; reference losses/loss_functions.py), NCHW.
+:26-158; reference losses/loss_functions.py), NCHW.
 
 Predictions are [B, C, H, W] and labels [B, C_label, H, W]; every loss is
 computed in f32 and returns a scalar.  The ignore label is 255.
@@ -52,6 +52,25 @@ def balanced_bce_loss(output: torch.Tensor, label: torch.Tensor,
     return final / float(labels.numel() if size_average else labels.shape[0])
 
 
+def bce_loss(output: torch.Tensor, label: torch.Tensor,
+             size_average: bool = True) -> torch.Tensor:
+    """Unbalanced BCE with logits (functions.py:91-102; reference
+    BinaryCrossEntropyLoss)."""
+    labels = (label.float() >= 0.5).float()
+    loss_pos_pix, loss_neg_pix = _stable_bce_terms(output, labels)
+    final = loss_pos_pix.sum() + loss_neg_pix.sum()
+    return final / float(labels.numel() if size_average else labels.shape[0])
+
+
+def depth_l1_loss(output: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Mean |output - label| over the pixels whose label is not 255, at
+    least one (functions.py:105-111)."""
+    label = label.float()
+    mask = label != IGNORE
+    diff = torch.where(mask, (output.float() - label).abs(), 0.0)
+    return diff.sum() / mask.sum().clamp(min=1)
+
+
 def normals_l1_loss(output: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     """L2-normalise the prediction over channels, then the L1 over
     elements whose label is not 255, divided by max(n_valid, 1e-6)
@@ -62,6 +81,17 @@ def normals_l1_loss(output: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     mask = label != IGNORE
     diff = torch.where(mask, (out - label).abs(), 0.0)
     return diff.sum() / mask.sum().float().clamp(min=1e-6)
+
+
+def get_loss_fn(loss_kind: str, p=None) -> Callable:
+    """The loss of a TaskSpec.loss_kind (functions.py:130-142; reference
+    utils/common_config.py:780-807)."""
+    fns = {"softmax_ce": softmax_ce_loss, "balanced_bce": balanced_bce_loss,
+           "bce": bce_loss, "depth_l1": depth_l1_loss,
+           "normals_l1": normals_l1_loss}
+    if loss_kind not in fns:
+        raise NotImplementedError(loss_kind)
+    return fns[loss_kind]
 
 
 def loss_fn_for_task(task_name: str, p) -> Callable:
@@ -76,4 +106,6 @@ def loss_fn_for_task(task_name: str, p) -> Callable:
         return normals_l1_loss
     if task_name == "sal":
         return balanced_bce_loss
-    raise NotImplementedError(f"loss for task {task_name!r} is not ported")
+    if task_name == "depth":
+        return depth_l1_loss
+    raise NotImplementedError(task_name)

@@ -1,5 +1,6 @@
 """Shared encoder + per-task decoders, eval and train (counterpart of
-m3vit_tpu/models/multitask.py:MultiTaskModel :40-227).
+m3vit_tpu/models/multitask.py: SingleTaskModel :22-37, MultiTaskModel
+:40-227).
 
 multi_gate: one backbone pass per task with that task's routers
 (multitask.py:199-207), or with shared_prefix the task-independent prefix
@@ -19,7 +20,40 @@ import torch
 from torch import nn
 
 from m3vit_tpu_torch.models.heads import resize_bilinear
-from m3vit_tpu_torch.models.vit_moe import add_stats, reject_left_out
+from m3vit_tpu_torch.models.vit import reject_left_out
+from m3vit_tpu_torch.models.vit_moe import add_stats
+
+
+def _run_backbone(backbone: nn.Module, x: torch.Tensor, task_id, noise):
+    """(tokens, cv, stats) of one backbone pass; a dense backbone returns
+    tokens alone, and then cv is 0 and stats empty (multitask.py:29-34,
+    :83-94)."""
+    ret = backbone(x, task_id, noise)
+    if isinstance(ret, tuple):
+        return ret
+    return ret, torch.zeros((), device=x.device), {}
+
+
+class SingleTaskModel(nn.Module):
+    """Encoder + one decoder, named ``decoder`` as in the reference
+    (multitask.py:22-37; reference models.py:137-148)."""
+
+    def __init__(self, backbone: nn.Module, decoder: nn.Module, task: str):
+        super().__init__()
+        self.backbone = backbone
+        self.decoder = decoder
+        self.task = task
+
+    def forward(self, x: torch.Tensor, single_task: Optional[str] = None,
+                noise: Optional[torch.Generator] = None):
+        """x [B, 3, H, W] -> ({task: [B, C, H, W] f32}, cv, stats);
+        single_task, when given, must be the model's task."""
+        if single_task not in (None, self.task):
+            raise ValueError(f"this model runs {self.task!r} only, not "
+                             f"{single_task!r}")
+        feats, cv, stats = _run_backbone(self.backbone, x, None, noise)
+        out = resize_bilinear(self.decoder(feats), tuple(x.shape[-2:]))
+        return {self.task: out}, cv, stats
 
 
 class MultiTaskModel(nn.Module):
@@ -41,12 +75,12 @@ class MultiTaskModel(nn.Module):
         out: Dict[str, torch.Tensor] = {}
         if single_task is not None:
             tid = self.tasks.index(single_task) if self.multi_gate else None
-            feats, cv, stats = self.backbone(x, tid, noise)
+            feats, cv, stats = _run_backbone(self.backbone, x, tid, noise)
             out[single_task] = resize_bilinear(
                 self.decoders[single_task](feats), out_size)
             return out, cv, stats
         if not self.multi_gate:
-            feats, cv, stats = self.backbone(x, None, noise)
+            feats, cv, stats = _run_backbone(self.backbone, x, None, noise)
             for task in self.tasks:
                 out[task] = resize_bilinear(self.decoders[task](feats),
                                             out_size)

@@ -1,4 +1,5 @@
-"""Dense ViT building blocks (counterpart of m3vit_tpu/models/vit.py).
+"""Dense ViT building blocks and the dense backbone (counterpart of
+m3vit_tpu/models/vit.py).
 
 Parameters are named like the torch reference model
 (``attn.qkv.weight``, ``mlp.fc1.weight``, ...), so reference state dicts and
@@ -10,7 +11,7 @@ package's flax modules do (param_dtype f32, dtype bf16; vit.py:252-257).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +20,24 @@ from torch import nn
 from m3vit_tpu_torch.ops.expert_ffn import fused_dense_mlp
 from m3vit_tpu_torch.ops.flash_attention import flash_attention_qkv
 from m3vit_tpu_torch.ops.ln_mlp import fused_dense_ln_mlp
+
+
+#: options of the JAX package this port leaves out; asking for one raises
+LEFT_OUT = (
+    "scan_blocks", "stacked_tasks", "scan_tasks", "expert_prune",
+    "regu_experts_fromtask", "sem_force", "regu_sem", "regu_subimage",
+    "distilled",
+    "gate_input_ahead", "drop_rate", "attn_drop_rate", "drop_path_rate",
+)
+
+
+def reject_left_out(knobs: Dict) -> None:
+    for k, v in knobs.items():
+        if k not in LEFT_OUT:
+            raise TypeError(f"unexpected argument {k!r}")
+        if v:
+            raise NotImplementedError(
+                f"{k} is not ported to m3vit_tpu_torch (JAX package only)")
 
 
 @torch.no_grad()
@@ -172,3 +191,52 @@ class DenseBlock(nn.Module):
                 fc2.weight, fc2.bias, eps=self.norm2.eps,
                 use_kernels=self.mlp.use_kernels)
         return x + self.mlp(layer_norm(self.norm2, x).to(self.dtype))
+
+
+def embed_tokens(backbone: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Patch tokens of images x [B, 3, H, W] behind the cls token, plus the
+    position embedding, in the backbone's compute dtype
+    (vit.py:384-407)."""
+    tokens = backbone.patch_embed(x)
+    cls = backbone.cls_token.to(backbone.dtype).expand(x.shape[0], -1, -1)
+    return torch.cat([cls, tokens], dim=1) + backbone.pos_embed.to(
+        backbone.dtype)
+
+
+class VisionTransformer(nn.Module):
+    """Dense ViT backbone: patch embed, cls token, position embedding and
+    `depth` DenseBlocks; returns the final tokens [B, 1+N, C]
+    (vit.py:358-430; reference models/backbones/vit.py:344-501).  Its MLPs
+    run through the fused FFN (K3/K4 at E=1), or with ln_mlp the whole
+    LayerNorm + MLP + residual through K5/K6, as the MoE backbone's dense
+    blocks do."""
+
+    def __init__(self, img_size=(512, 512), patch_size: int = 16,
+                 embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None, dtype=torch.float32,
+                 ln_mlp: bool = False, **left_out):
+        super().__init__()
+        reject_left_out(left_out)
+        self.dtype = dtype
+        num_patches = (img_size[0] // patch_size) * (img_size[1] // patch_size)
+        self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        self.pos_embed = nn.Parameter(torch.zeros(1, num_patches + 1,
+                                                  embed_dim))
+        self.blocks = nn.ModuleList(
+            DenseBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale,
+                       dtype, ln_mlp) for _ in range(depth))
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        nn.init.zeros_(self.cls_token)
+        fill_normal(self.pos_embed, 0.02, gen)
+
+    def forward(self, x: torch.Tensor, task_id=None,
+                noise: Optional[torch.Generator] = None) -> torch.Tensor:
+        """task_id and noise are accepted and ignored, for one call shape
+        with the MoE backbone (vit.py:380)."""
+        tokens = embed_tokens(self, x)
+        for blk in self.blocks:
+            tokens = blk(tokens)
+        return tokens

@@ -23,6 +23,7 @@ blocks' LayerNorm + MLP + residual run as one fused sublayer
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -33,9 +34,11 @@ from m3vit_tpu_torch.models.vit import (
     DenseBlock,
     DenseParams,
     PatchEmbed,
+    embed_tokens,
     fill_normal,
     fill_uniform,
     layer_norm,
+    reject_left_out,
 )
 from m3vit_tpu_torch.moe.dispatch import (
     MoEFfnParams,
@@ -45,26 +48,16 @@ from m3vit_tpu_torch.moe.dispatch import (
 )
 from m3vit_tpu_torch.moe.gating import (
     GateOutput,
+    gate_load_counts,
     moe_aux_loss,
+    moe_aux_loss_noisy,
+    noisy_gate,
+    noisy_gate_init,
     noisy_vmoe_gate,
 )
 
-#: options of the JAX package this port leaves out; asking for one raises
-LEFT_OUT = (
-    "scan_blocks", "stacked_tasks", "scan_tasks", "expert_prune",
-    "regu_experts_fromtask", "sem_force", "regu_sem", "regu_subimage",
-    "distilled",
-    "gate_input_ahead", "drop_rate", "attn_drop_rate", "drop_path_rate",
-)
-
-
-def reject_left_out(knobs: Dict) -> None:
-    for k, v in knobs.items():
-        if k not in LEFT_OUT:
-            raise TypeError(f"unexpected argument {k!r}")
-        if v:
-            raise NotImplementedError(
-                f"{k} is not ported to m3vit_tpu_torch (JAX package only)")
+#: the gates of vit_moe.py:MoEMlp (gate_type / moe_gate_type)
+GATE_TYPES = ("noisy_vmoe", "noisy")
 
 
 def add_stats(acc: Dict[str, torch.Tensor], st: Dict[str, torch.Tensor]):
@@ -72,16 +65,42 @@ def add_stats(acc: Dict[str, torch.Tensor], st: Dict[str, torch.Tensor]):
     return st if not acc else {k: acc[k] + st[k] for k in st}
 
 
-class NoisyGate(nn.Module):
-    """One router: w_gate [d, E] f32 (reference noisy_gate_vmoe.py)."""
+@contextlib.contextmanager
+def collect_gate_stats(model: nn.Module):
+    """Within the block, every MoE block of `model` also returns its gates'
+    analysis statistics (MoEMlp.forward); restored on exit."""
+    mlps = [m for m in model.modules() if isinstance(m, MoEMlp)]
+    before = [m.gate_stats for m in mlps]
+    for m in mlps:
+        m.gate_stats = True
+    try:
+        yield
+    finally:
+        for m, flag in zip(mlps, before):
+            m.gate_stats = flag
 
-    def __init__(self, dim: int, num_experts: int):
+
+class NoisyGate(nn.Module):
+    """One router: w_gate [d, E] f32 (reference noisy_gate_vmoe.py), and
+    with learned_noise the noise weights w_noise [d, E] of the
+    learned-noise gate (reference gates.py:68-90)."""
+
+    def __init__(self, dim: int, num_experts: int,
+                 learned_noise: bool = False):
         super().__init__()
         self.w_gate = nn.Parameter(torch.zeros(dim, num_experts))
+        self.w_noise = nn.Parameter(torch.zeros(dim, num_experts)) \
+            if learned_noise else None
 
     def init_weights(self, gen: torch.Generator) -> None:
-        # kaiming_uniform(a=sqrt(5)) on [d, E]: bound 1/sqrt(E)
-        fill_uniform(self.w_gate, self.w_gate.shape[1] ** -0.5, gen)
+        if self.w_noise is None:
+            # kaiming_uniform(a=sqrt(5)) on [d, E]: bound 1/sqrt(E)
+            fill_uniform(self.w_gate, self.w_gate.shape[1] ** -0.5, gen)
+            return
+        with torch.no_grad():
+            for p, w in zip((self.w_gate, self.w_noise),
+                            noisy_gate_init(*self.w_gate.shape, gen)):
+                p.copy_(w)
 
 
 class QuantDenseParams(nn.Module):
@@ -129,14 +148,22 @@ class Experts(nn.Module):
 
 
 class MoEMlp(nn.Module):
-    """gate -> dispatch -> experts -> combine (vit_moe.py:169-464)."""
+    """gate -> dispatch -> experts -> combine (vit_moe.py:169-464).
+    gate_type "noisy_vmoe" is the VMoE gate with noise std
+    vmoe_noisy_std / E, "noisy" the learned-noise gate."""
 
     def __init__(self, dim: int, num_experts: int, d_hidden: int,
                  top_k: int = 2, multi_gate: bool = False, num_tasks: int = 0,
                  vmoe_noisy_std: float = 1.0, capacity_factor: float = 2.0,
                  eval_capacity_factor: float = 4.0,
-                 expert_weights_int8: bool = False):
+                 expert_weights_int8: bool = False,
+                 gate_type: str = "noisy_vmoe"):
         super().__init__()
+        if gate_type not in GATE_TYPES:
+            raise ValueError(f"gate_type {gate_type!r} is not one of "
+                             f"{GATE_TYPES}")
+        self.gate_type = gate_type
+        self.gate_stats = False
         self.num_experts = num_experts
         self.top_k = top_k
         self.multi_gate = multi_gate
@@ -144,13 +171,15 @@ class MoEMlp(nn.Module):
         self.vmoe_noisy_std = vmoe_noisy_std
         self.capacity_factor = capacity_factor
         self.eval_capacity_factor = eval_capacity_factor
+        learned = gate_type == "noisy"
         if multi_gate:
             if num_tasks <= 0:
                 raise ValueError("multi_gate requires num_tasks > 0")
             self.gate = nn.ModuleList(
-                NoisyGate(dim, num_experts) for _ in range(num_tasks))
+                NoisyGate(dim, num_experts, learned)
+                for _ in range(num_tasks))
         else:
-            self.gate = NoisyGate(dim, num_experts)
+            self.gate = NoisyGate(dim, num_experts, learned)
         self.experts = Experts(num_experts, dim, d_hidden,
                                int8=expert_weights_int8)
         self.use_kernels = True
@@ -166,17 +195,22 @@ class MoEMlp(nn.Module):
             gate_mod = self.gate[min(max(int(task_id), 0), self.num_tasks - 1)]
         else:
             gate_mod = self.gate
+        learned = self.gate_type == "noisy"
         gate_noise = None
-        if self.training and self.vmoe_noisy_std > 0:
+        if self.training and (learned or self.vmoe_noisy_std > 0):
             if noise is None:
                 raise ValueError("training the noisy gate needs gate noise: "
                                  "pass a torch.Generator as `noise`")
             # the JAX package draws it with jax.random.normal (gating.py:112)
             gate_noise = torch.randn((B * N, E), generator=noise,
                                      device=x.device)
-        gate = noisy_vmoe_gate(x.reshape(-1, C).float(), gate_mod.w_gate,
-                               top_k=K, noise_std=self.vmoe_noisy_std,
-                               noise=gate_noise)
+        if learned:
+            gate = noisy_gate(x.reshape(-1, C).float(), gate_mod.w_gate,
+                              gate_mod.w_noise, top_k=K, noise=gate_noise)
+        else:
+            gate = noisy_vmoe_gate(x.reshape(-1, C).float(), gate_mod.w_gate,
+                                   top_k=K, noise_std=self.vmoe_noisy_std,
+                                   noise=gate_noise)
         top_idx = gate.top_k_indices.reshape(B, N, K)
         top_gates = gate.top_k_gates.reshape(B, N, K)
         cf = self.capacity_factor if self.training else \
@@ -196,7 +230,32 @@ class MoEMlp(nn.Module):
             "dropped_slot_fraction": overflow / (T * K),
             "moe_stat_count": torch.ones((), device=x.device),
         }
+        if self.gate_stats:
+            stats.update(self.analysis_stats(gate))
         return out.to(x.dtype), gate, stats
+
+    def aux_loss(self, gate: GateOutput) -> torch.Tensor:
+        """The block's cv balance loss for its gate type
+        (vit_moe.py:577-582); 0 outside training."""
+        loss = moe_aux_loss_noisy if self.gate_type == "noisy" \
+            else moe_aux_loss
+        return loss(gate, self.top_k, self.num_experts, self.training)
+
+    @staticmethod
+    @torch.no_grad()
+    def analysis_stats(gate: GateOutput) -> Dict[str, torch.Tensor]:
+        """The gates' entropy and top-1 sums over tokens, the token count
+        and the per-expert load histogram, detached (vit_moe.py:584-598;
+        the top-k scores carry what the dense gates do)."""
+        tk = gate.top_k_gates.float()
+        ent = -(tk * torch.log(tk.clamp(min=1e-12))).sum(-1)
+        return {
+            "gate_entropy_sum": ent.sum(),
+            "top1_prob_sum": tk.max(-1).values.sum(),
+            "gate_token_count": torch.tensor(float(tk.shape[0]),
+                                             device=tk.device),
+            "expert_load_hist": gate_load_counts(gate),
+        }
 
 
 class MoEBlock(nn.Module):
@@ -210,7 +269,8 @@ class MoEBlock(nn.Module):
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
                  vmoe_noisy_std: float = 1.0, capacity_factor: float = 2.0,
                  eval_capacity_factor: float = 4.0, dtype=torch.float32,
-                 expert_weights_int8: bool = False):
+                 expert_weights_int8: bool = False,
+                 gate_type: str = "noisy_vmoe"):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
@@ -219,7 +279,7 @@ class MoEBlock(nn.Module):
         self.mlp = MoEMlp(dim, moe_experts, moe_hidden_dim, moe_top_k,
                           multi_gate, num_tasks, vmoe_noisy_std,
                           capacity_factor, eval_capacity_factor,
-                          expert_weights_int8)
+                          expert_weights_int8, gate_type)
 
     def forward(self, x: torch.Tensor, task_id: Optional[int],
                 noise: Optional[torch.Generator] = None, stage: str = "full"):
@@ -230,9 +290,7 @@ class MoEBlock(nn.Module):
                 return x, torch.zeros((), device=x.device), {}
         h = layer_norm(self.norm2, x).to(self.dtype)
         moe_out, gate, stats = self.mlp(h, task_id, noise)
-        cv = moe_aux_loss(gate, self.mlp.top_k, self.mlp.num_experts,
-                          self.training)
-        return x + moe_out, cv, stats
+        return x + moe_out, self.mlp.aux_loss(gate), stats
 
 
 class VisionTransformerMoE(nn.Module):
@@ -250,7 +308,7 @@ class VisionTransformerMoE(nn.Module):
                  vmoe_noisy_std: float = 1.0, capacity_factor: float = 2.0,
                  eval_capacity_factor: float = 4.0, dtype=torch.float32,
                  expert_weights_int8: bool = False, ln_mlp: bool = False,
-                 **left_out):
+                 moe_gate_type: str = "noisy_vmoe", **left_out):
         super().__init__()
         reject_left_out(left_out)
         self.dtype = dtype
@@ -268,7 +326,7 @@ class VisionTransformerMoE(nn.Module):
             MoEBlock(embed_dim, num_heads, moe_hidden, moe_experts, moe_top_k,
                      multi_gate, num_tasks, qkv_bias, qk_scale,
                      vmoe_noisy_std, capacity_factor, eval_capacity_factor,
-                     dtype, expert_weights_int8)
+                     dtype, expert_weights_int8, moe_gate_type)
             for i in range(depth))
 
     def init_weights(self, gen: torch.Generator) -> None:
@@ -306,10 +364,7 @@ class VisionTransformerMoE(nn.Module):
         dense block and the first MoE block's attention) runs once and the
         rest once per task, and the tokens come back task-major
         [T*B, 1+N, C] (vit_moe.py:1057-1101)."""
-        B = x.shape[0]
-        tokens = self.patch_embed(x)
-        cls = self.cls_token.to(self.dtype).expand(B, -1, -1)
-        tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(self.dtype)
+        tokens = embed_tokens(self, x)
         if not shared_prefix:
             return self._run_blocks(tokens, task_id, 0, "full", noise)
         task_ids: Sequence[int] = task_id

@@ -74,6 +74,17 @@ def round_up(x: int, m: int) -> int:
 NO_DROP = float("inf")
 
 
+def parse_capacity_factor(value) -> float:
+    """A capacity factor from a config or the command line: a number, or
+    "nodrop" / "no_drop" / "inf" for NO_DROP (dispatch.py:115-122)."""
+    if isinstance(value, str):
+        v = value.strip().lower()
+        if v in ("nodrop", "no_drop", "inf"):
+            return NO_DROP
+        return float(v)
+    return float(value)
+
+
 def compute_capacity(num_tokens: int, top_k: int, num_experts: int,
                      capacity_factor: float) -> int:
     """Static per-expert capacity, rounded up to 8 (dispatch.py:99-112)."""

@@ -1,17 +1,26 @@
-"""SGD and the per-epoch poly schedule (counterpart of
-m3vit_tpu/train/optim.py:16-26, 55-86; reference
-utils/common_config.py:858-924).
+"""Optimizers and the per-epoch LR schedules (counterpart of
+m3vit_tpu/train/optim.py:16-86; reference utils/common_config.py:858-924).
 
 optax's ``chain(add_decayed_weights(wd), sgd(lr, momentum))`` is
 ``torch.optim.SGD(momentum, weight_decay, dampening=0, nesterov=False)``
 over one parameter group: both add wd * param to the gradient before the
 momentum buffer (buf = momentum * buf + g, the first buf = g) and step by
--lr * buf.
+-lr * buf.  ``optax.adam(lr)`` is ``torch.optim.Adam`` with b1 0.9, b2
+0.999, eps 1e-8 and no weight decay (the JAX package's adam ignores the
+config's weight_decay); ``optax.adamw(lr, weight_decay=wd)`` is
+``torch.optim.AdamW`` with the same moments and decoupled decay
+p -= lr * wd * p.
+
+Gradient accumulation (``accumulation_steps`` k > 1, ``optax.MultiSteps``
+there) is the train step's part (train/step.py): it applies the update
+to the mean of k micro-batch gradients every k-th call.  The schedule
+built here counts optimizer steps, max(steps_per_epoch // k, 1) per
+epoch.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence
 
 import torch
 
@@ -28,26 +37,60 @@ def poly_lr(base_lr: float, epochs: int,
     return schedule
 
 
+def step_lr(base_lr: float, steps_per_epoch: int,
+            decay_epochs: Sequence[float],
+            decay_rate: float) -> Callable[[int], float]:
+    """lr(step) = base_lr * decay_rate ** n, n the decay epochs the current
+    epoch is strictly past (optim.py:28-38)."""
+    decay_epochs = [float(e) for e in decay_epochs]
+
+    def schedule(step: int) -> float:
+        epoch = step // steps_per_epoch
+        return base_lr * decay_rate ** sum(epoch > e for e in decay_epochs)
+
+    return schedule
+
+
+def build_schedule(p: Dict, steps_per_epoch: int) -> Callable[[int], float]:
+    """The config's per-step lr: "poly" or "step" (optim.py:41-52)."""
+    kw = p.get("optimizer_kwargs") or {}
+    base_lr = float(kw.get("lr", 1e-3))
+    name = p.get("scheduler", "poly")
+    if name == "poly":
+        return poly_lr(base_lr, int(p["epochs"]), steps_per_epoch)
+    if name == "step":
+        skw = p.get("scheduler_kwargs") or {}
+        return step_lr(base_lr, steps_per_epoch,
+                       skw.get("lr_decay_epochs", []),
+                       float(skw.get("lr_decay_rate", 0.1)))
+    raise ValueError(name)
+
+
 def build_optimizer(params: Iterable[torch.nn.Parameter], p: Dict,
                     steps_per_epoch: int):
-    """(torch.optim.SGD, schedule) from the JAX config keys
-    ({"optimizer": "sgd", "optimizer_kwargs": {lr, momentum, weight_decay,
-    nesterov}, "scheduler": "poly", "epochs"}).  The train step sets each
-    step's lr from the schedule.  Gradient accumulation (the JAX package's
-    optax.MultiSteps, with the schedule counted in optimizer steps) is not
-    ported: ``accumulation_steps`` > 1 raises rather than train with another
-    update rule."""
-    if p.get("optimizer", "sgd") != "sgd" or p.get("scheduler",
-                                                    "poly") != "poly":
-        raise NotImplementedError("only SGD with the poly schedule is ported")
-    if int(p.get("accumulation_steps", 1)) > 1:
-        raise NotImplementedError(
-            "accumulation_steps > 1 (optax.MultiSteps in the JAX package) is "
-            "not ported")
+    """(optimizer, schedule) from the JAX config keys ({"optimizer":
+    "sgd" | "adam" | "adamw", "optimizer_kwargs": {lr, momentum,
+    weight_decay, nesterov}, "scheduler": "poly" | "step",
+    "scheduler_kwargs", "epochs", "accumulation_steps"}; optim.py:55-86).
+    The train step sets each optimizer step's lr from the schedule, and
+    takes ``accumulation_steps`` itself."""
     kw = dict(p.get("optimizer_kwargs") or {})
+    accum = max(int(p.get("accumulation_steps", 1)), 1)
+    schedule = build_schedule(p, max(steps_per_epoch // accum, 1))
     base_lr = float(kw.get("lr", 1e-3))
-    opt = torch.optim.SGD(
-        params, lr=base_lr, momentum=float(kw.get("momentum", 0.0)),
-        weight_decay=float(kw.get("weight_decay", 0.0)), dampening=0.0,
-        nesterov=bool(kw.get("nesterov", False)))
-    return opt, poly_lr(base_lr, int(p["epochs"]), steps_per_epoch)
+    wd = float(kw.get("weight_decay", 0.0))
+    name = p.get("optimizer", "sgd")
+    if name == "sgd":
+        opt = torch.optim.SGD(
+            params, lr=base_lr, momentum=float(kw.get("momentum", 0.0)),
+            weight_decay=wd, dampening=0.0,
+            nesterov=bool(kw.get("nesterov", False)))
+    elif name == "adam":
+        opt = torch.optim.Adam(params, lr=base_lr, betas=(0.9, 0.999),
+                               eps=1e-8, weight_decay=0.0)
+    elif name == "adamw":
+        opt = torch.optim.AdamW(params, lr=base_lr, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=wd)
+    else:
+        raise ValueError(f"Invalid optimizer {name}")
+    return opt, schedule

@@ -7,9 +7,11 @@ m3vit_tpu/utils/torch_interop.py:params_to_reference_sd (:548-650), and the
 port also loads reference-format MTL checkpoints.  This is the port's own
 copy of that mapping (flax [in, out] kernels -> torch [out, in] weights),
 plus the ``num_batches_tracked`` buffers that ``nn.BatchNorm2d`` carries,
-and the int8 expert banks of a quantized model (``experts_w1_q`` ->
+the int8 expert banks of a quantized model (``experts_w1_q`` ->
 ``htoh4.weight_q`` transposed, kept int8; ``experts_w1_scale`` ->
-``htoh4.weight_scale``, per out channel in either layout).
+``htoh4.weight_scale``, per out channel in either layout), the
+learned-noise gate's ``w_noise`` beside ``w_gate``, the dense ViT (its
+blocks have no MoE layer) and a SingleTaskModel's one ``decoder``.
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ def jax_variables_to_state_dict(variables: Dict, tasks: Iterable,
                                 ) -> Dict[str, torch.Tensor]:
     """flax variables -> the port's state dict (f32 tensors; load_state_dict
     casts each to its parameter's dtype).  `tasks`: task names or TaskSpecs
-    whose decoders to carry; `multi_gate_tasks`: number of per-task routers
-    (0 = one shared router)."""
+    whose decoders to carry (``decoders.{task}``; a SingleTaskModel's tree
+    holds one ``decoder`` instead, carried whatever `tasks` says);
+    `multi_gate_tasks`: number of per-task routers (0 = one shared
+    router)."""
     params = variables["params"]
     batch_stats = variables.get("batch_stats") or {}
     sd: Dict[str, torch.Tensor] = {}
@@ -61,12 +65,15 @@ def jax_variables_to_state_dict(variables: Dict, tasks: Iterable,
         dense(pre + "attn.proj", blk["attn"]["proj"])
         mlp = blk["mlp"]
         if "experts_b1" in mlp:  # MoE block
-            w_gate = np.asarray(mlp["w_gate"])
-            if multi_gate_tasks > 0:
-                for t in range(multi_gate_tasks):
-                    put(pre + f"mlp.gate.{t}.w_gate", w_gate[t])
-            else:
-                put(pre + "mlp.gate.w_gate", w_gate[0])
+            for w in ("w_gate", "w_noise"):
+                if w not in mlp:
+                    continue
+                v = np.asarray(mlp[w])
+                if multi_gate_tasks > 0:
+                    for t in range(multi_gate_tasks):
+                        put(pre + f"mlp.gate.{t}.{w}", v[t])
+                else:
+                    put(pre + f"mlp.gate.{w}", v[0])
             for n, bank in (("1", "htoh4"), ("2", "h4toh")):
                 key = pre + f"mlp.experts.{bank}."
                 put(key + "bias", mlp[f"experts_b{n}"])
@@ -82,11 +89,14 @@ def jax_variables_to_state_dict(variables: Dict, tasks: Iterable,
             dense(pre + "mlp.fc1", mlp["fc1"])
             dense(pre + "mlp.fc2", mlp["fc2"])
 
-    for t in tasks:
-        name = getattr(t, "name", t)
-        hp = params[f"decoders_{name}"]
-        hb = batch_stats.get(f"decoders_{name}", {})
-        pre = f"decoders.{name}."
+    if "decoder" in params:     # SingleTaskModel
+        heads = [("decoder.", params["decoder"],
+                  batch_stats.get("decoder", {}))]
+    else:
+        heads = [(f"decoders.{n}.", params[f"decoders_{n}"],
+                  batch_stats.get(f"decoders_{n}", {}))
+                 for n in (getattr(t, "name", t) for t in tasks)]
+    for pre, hp, hb in heads:
         norm(pre + "norm", hp["norm"])
         for i in range(5):
             conv(pre + f"conv_{i}", hp[f"conv_{i}"])

@@ -123,11 +123,13 @@ def test_flash_kernels_lse_and_determinism(cuda, B, N, d, valid):
     assert torch.equal(dq, dq2)
 
 
-# K3's cases: the serving and train capacities, the dense MLP, and token
-# counts that are not a multiple of its 128-row tile (77: one tile whose
-# second 64-row half is partly past the end; 40: wholly past it)
+# K3's cases: the serving and train capacities, the 5-task eval's no-drop
+# capacity at B=8 (8200 = every token), the dense MLP, and token counts
+# that are not a multiple of its 128-row tile (77: one tile whose second
+# 64-row half is partly past the end; 40: wholly past it)
 FFN_CASES = [(16, 520, 384, 384), (1, 1000, 384, 1536), (3, 77, 128, 256),
-             (16, 2568, 384, 384), (2, 77, 384, 384), (1, 40, 384, 1536)]
+             (16, 2568, 384, 384), (16, 8200, 384, 384), (2, 77, 384, 384),
+             (1, 40, 384, 1536)]
 
 
 def _ffn_args(cuda, E, C, d, H, seed):
@@ -155,7 +157,7 @@ def test_ffn_kernel_matches_plain(cuda, E, C, d, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("E,C,d,H", [(16, 2568, 384, 384), (1, 8200, 384, 1536),
-                                     (3, 77, 128, 256)])
+                                     (16, 8200, 384, 384), (3, 77, 128, 256)])
 def test_ffn_kernel_is_deterministic(cuda, E, C, d, H):
     """Two runs of K3 on the same inputs give the same bits."""
     args = _ffn_args(cuda, E, C, d, H, 8)

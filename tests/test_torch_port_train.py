@@ -303,22 +303,6 @@ def test_sgd_matches_optax():
                                    atol=1e-6, err_msg=f"step {i}")
 
 
-def test_build_optimizer_refuses_gradient_accumulation():
-    """accumulation_steps > 1 is optax.MultiSteps in the JAX package (the
-    update every k micro-batches, the schedule in optimizer steps); the
-    port has no counterpart yet, so it raises instead of stepping on every
-    micro-batch.  1 (the default) builds as before."""
-    cfg = {"optimizer": "sgd", "scheduler": "poly", "epochs": 4,
-           "optimizer_kwargs": {"lr": 0.1, "momentum": 0.9}}
-    param = torch.nn.Parameter(torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="accumulation_steps"):
-        build_optimizer([param], {**cfg, "accumulation_steps": 2},
-                        steps_per_epoch=4)
-    opt, schedule = build_optimizer([param], {**cfg, "accumulation_steps": 1},
-                                    steps_per_epoch=4)
-    assert isinstance(opt, torch.optim.SGD) and schedule(0) == 0.1
-
-
 def test_head_train_bn_matches_flax():
     """PUP head in train mode: outputs, and BN running statistics folded
     with flax's biased batch variance (momentum 0.9); at 2x4x4 positions
