@@ -26,7 +26,17 @@ random weights) along each of its paths, the kernels' launch counts set to
   time of a bucket-8 request), held against its plain path;
 - ln_mlp: the flagship with the fused dense sublayer, served at bucket 8
   with one 5-task eval and trained, each held against the unfused model on
-  the same weights, with timed steps.
+  the same weights, with timed steps;
+- one-by-one, accumulation, the learned-noise gate, the no-drop eval and
+  the dense ViT-small, each held against its plain path;
+- cli: the trainer CLI (m3vit_tpu_torch.cli.train) on a PASCAL-Context
+  tree fabricated by scripts/fabricate_dataset.py, with the headline
+  config: the worker loader against in-process loading, then a run
+  stopped after 11 steps, its --resume (the rest, one evaluation, the
+  best-model and epoch checkpoints), --eval and --eval
+  --save_predictions, launches counted over each run; a checkpoint loaded
+  into a fresh model and optimizer; the CLI's step time beside a
+  synthetic-batch step.
 Each phase prints one JSON line; the line before the last is nvidia-smi's
 card name and power limit, and the last line is {"ok": true, "device":
 {...}}.  Any failed check exits non-zero before that line; without CUDA the
@@ -36,11 +46,14 @@ script exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,7 +62,12 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from m3vit_tpu_torch import native  # noqa: E402
+from m3vit_tpu_torch.cli.train import main as cli_main  # noqa: E402
+from m3vit_tpu_torch.config import create_config  # noqa: E402
+from m3vit_tpu_torch.data.loader import EpochLoader, get_dataset  # noqa: E402
 from m3vit_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
+from m3vit_tpu_torch.data.transforms import get_transformations  # noqa: E402
 from m3vit_tpu_torch.evaluation.orchestrate import _DropGuard  # noqa: E402
 from m3vit_tpu_torch.losses.functions import loss_fn_for_task  # noqa: E402
 from m3vit_tpu_torch.losses.schemes import (  # noqa: E402
@@ -109,6 +127,7 @@ from m3vit_tpu_torch.train.step import (  # noqa: E402
     make_one_by_one_train_step,
     make_train_step,
 )
+from m3vit_tpu_torch.utils.checkpoint import restore_checkpoint  # noqa: E402
 
 BUCKETS = (1, 2, 4, 8)
 IMG = 512
@@ -1071,12 +1090,14 @@ def make_grad_run(dev, names, batch, loss_fns, init, cotangent):
 
 
 def timed_steps(model, names, loss_fns, batch, dev, expected, what: str,
-                make_step=make_train_step, loss_falls: bool = False):
+                make_step=make_train_step, loss_falls: bool = False,
+                profile: bool = True):
     """TIMED_STEPS train steps (`make_step`'s, SGD) on one batch, each
     between CUDA events, with the kernels' launches counted over them and
     held to `expected` per step, and with loss_falls the loss lower after
-    them than at their first; returns (the phase's readings, the
-    launches)."""
+    them than at their first; with `profile`, the device time of a step
+    (torch.profiler) and the card's idle share.  Returns (the phase's
+    readings, the launches)."""
     opt, schedule = build_optimizer(model.parameters(), OPTIM,
                                     steps_per_epoch=100)
     step = make_step(model, names, loss_fns, LOSS_WEIGHTS, opt, schedule)
@@ -1109,12 +1130,14 @@ def timed_steps(model, names, loss_fns, batch, dev, expected, what: str,
     per_step = check_launches(launches, TIMED_STEPS, expected, what)
     step_ms = [a.elapsed_time(b) for a, b in ev]
     median = float(np.median(step_ms))
-    prof = device_profile(lambda: step(batch, noise))
+    prof = {}
+    if profile:
+        p = device_profile(lambda: step(batch, noise))
+        prof = {"device_ms_per_step": p["device_ms"],
+                "device_idle_frac": 1.0 - p["device_ms"] / median,
+                "top_kernels": p["top"]}
     return {"batch": TRAIN_BATCH, "steps": TIMED_STEPS,
-            "step_ms_median": median, "step_ms": step_ms,
-            "device_ms_per_step": prof["device_ms"],
-            "device_idle_frac": 1.0 - prof["device_ms"] / median,
-            "top_kernels": prof["top"],
+            "step_ms_median": median, "step_ms": step_ms, **prof,
             "img_per_s": TIMED_STEPS * TRAIN_BATCH / window_s,
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches_per_step": per_step, "losses": losses,
@@ -1796,6 +1819,263 @@ def eval_nodrop_phase(dev):
     return launches
 
 
+# the cli phase: a fabricated PASCAL-Context tree of CLI_IMAGES images at
+# PASCAL-Context's usual 375 x 500, the headline config at full width
+CLI_CONFIG = "configs/pascal/vit_moe_small_multi_task.yml"
+CLI_IMAGES, CLI_HW, CLI_BATCH = 64, (375, 500), 8
+CLI_EVAL_REL_TOL = 1e-5      # --eval against the results of run 2's eval
+CLI_PHASE_LIMIT_S = 150.0
+
+
+def expected_cli_launches(steps: int, eval_batches: int):
+    """K1-K4 launches of `steps` joint train steps without the shared
+    prefix (60 each) and `eval_batches` 5-task no-drop eval batches (12 K1
+    + 12 K3 a task pass); kernels launched 0 times left out."""
+    per = expected_train_launches(12, 1)
+    out = {k: 5 * v * steps for k, v in per.items()}
+    for k in ("flash_attention_fwd", "expert_ffn_fwd"):
+        out[k] += 60 * eval_batches
+    return {k: v for k, v in out.items() if v}
+
+
+def _leaves(d, prefix=""):
+    """(path, number) of every numeric leaf of a results dict."""
+    if isinstance(d, dict):
+        for k, v in d.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    elif isinstance(d, (list, tuple)):
+        for i, v in enumerate(d):
+            yield from _leaves(v, f"{prefix}/{i}")
+    elif isinstance(d, (int, float)):
+        yield prefix, float(d)
+
+
+def _summary(result):
+    """A CLI run's result without its per-class lists and step times."""
+    if isinstance(result, dict):
+        return {k: _summary(v) for k, v in result.items()
+                if k != "step_times" and not isinstance(v, list)}
+    return result
+
+
+def cli_phase(dev):
+    """The trainer CLI (python -m m3vit_tpu_torch.cli.train) on a PASCAL_MT
+    tree made by scripts/fabricate_dataset.py, with the headline config
+    (greedy edge matcher, 5 thresholds): the worker loader alone (its
+    first batches against in-process loading, bit for bit), then four
+    in-process runs, launches counted over each: 11 steps stopped by
+    --stop_after_steps, --resume (the 5 steps left, one eval, the best
+    and epoch-1 checkpoints), --eval (run 2's results) and --eval
+    --save_predictions (files, edge odsF); the epoch-1 checkpoint loaded
+    into a fresh model and optimizer; the CLI's ms per step beside run 1's
+    own train step (analysis metrics on, as the CLI builds it) timed on a
+    synthetic batch."""
+    import yaml
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    log_path = os.path.join(root, "cli.log")
+    try:
+        db = os.path.join(root, "PASCAL_MT")
+        t0 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-c",
+             "import sys; sys.path.insert(0, sys.argv[1]); "
+             "from fabricate_dataset import fabricate_pascal; "
+             "fabricate_pascal(sys.argv[2], int(sys.argv[3]), "
+             "(int(sys.argv[4]), int(sys.argv[5])))",
+             os.path.join(here, "scripts"), db, str(CLI_IMAGES),
+             *map(str, CLI_HW)], check=True, timeout=300)
+        fabricate_s = time.perf_counter() - t0
+        env = os.path.join(root, "env.yml")
+        cfg = os.path.join(root, "config.yml")
+        with open(env, "w") as f:
+            yaml.safe_dump({"root_dir": os.path.join(root, "runs"),
+                            "dataset_roots": {"PASCAL_MT": db}}, f)
+        with open(os.path.join(here, CLI_CONFIG)) as f:
+            exp = yaml.safe_load(f)
+        exp.update(edge_odsF_matcher="greedy", edge_odsF_thresholds=5)
+        with open(cfg, "w") as f:
+            yaml.safe_dump(exp, f)
+        p = create_config(env, cfg, {"moe_eval_capacity_factor":
+                                     parse_capacity_factor("nodrop")})
+
+        # the loader alone, the card idle: two batches in-process, then one
+        # epoch with the config's workers (started by the epoch)
+        tr, _ = get_transformations(p)
+        ds = get_dataset(p, "train", None)
+        ref = EpochLoader(ds, tr, CLI_BATCH, seed=0, num_workers=0)
+        t0 = time.perf_counter()
+        first = list(itertools.islice(ref.epoch(0), 2))
+        in_process_s = (time.perf_counter() - t0) / (2 * CLI_BATCH)
+        loader = EpochLoader(ds, tr, CLI_BATCH, seed=0,
+                             num_workers=int(p["nworkers"]), pin_memory=True)
+        got, arrivals = [], []
+        t0 = time.perf_counter()
+        for i, b in enumerate(loader.epoch(0)):
+            arrivals.append(time.perf_counter() - t0)
+            if i < 2:
+                got.append(b)
+        loader.close()
+        same = all(
+            a["meta"] == b["meta"] and a.keys() == b.keys()
+            and all(torch.equal(a[k], b[k]) for k in a if k != "meta")
+            for a, b in zip(first, got))
+        check(len(got) == 2 and same,
+              "cli: the worker loader's first two batches differ from "
+              "in-process loading")
+        n_img = len(arrivals) * CLI_BATCH
+        emit({"phase": "cli_loader", "workers": int(p["nworkers"]),
+              "images": n_img, "batch": CLI_BATCH, "image_hw": CLI_HW,
+              "epoch_s": arrivals[-1], "first_batch_s": arrivals[0],
+              "img_per_s": n_img / arrivals[-1],
+              "img_per_s_after_first_batch":
+                  (n_img - CLI_BATCH) / (arrivals[-1] - arrivals[0]),
+              "in_process_s_per_sample": in_process_s,
+              "first_batches_bitwise_equal": same,
+              "fabricate_s": fabricate_s})
+
+        base = ["--config_env", env, "--config_exp", cfg,
+                "--trBatch", str(CLI_BATCH), "--valBatch", str(CLI_BATCH),
+                "--epochs", "2", "--moe_eval_capacity_factor", "nodrop"]
+        spe = CLI_IMAGES // CLI_BATCH
+        val_batches = CLI_IMAGES // CLI_BATCH
+        runs, launches = {}, {}
+        with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+            for name, extra in (("stop", ["--stop_after_steps", "11"]),
+                                ("resume", ["--resume"]),
+                                ("eval", ["--eval"]),
+                                ("save_predictions",
+                                 ["--eval", "--save_predictions"])):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _build.reset_launches()    # the cli path starts here
+                runs[name] = cli_main(base + extra)
+                torch.cuda.synchronize()
+                launches[name] = dict(_build.launches)   # ... and ends here
+                runs[name]["seconds"] = time.perf_counter() - t0
+                if runs[name]["step_times"]:
+                    runs[name]["first_step_s"] = \
+                        runs[name]["step_times"][0][1] - t0
+        r1, r2, r3, r4 = (runs[k] for k in ("stop", "resume", "eval",
+                                            "save_predictions"))
+        step_dir = os.path.join(p["output_dir"], "step_checkpoint")
+        with open(os.path.join(step_dir, "meta_11.json")) as f:
+            step_meta = json.load(f)
+        check(r1.get("stopped_at_step") == 11 and r1["steps_run"] == 11
+              and step_meta["epoch"] == 1 and step_meta["next_it"] == 3,
+              f"cli run 1: stopped at {r1.get('stopped_at_step')} after "
+              f"{r1['steps_run']} steps, step checkpoint {step_meta}")
+        check(r2["steps_run"] == 2 * spe - 11 and r2.get("best") is not None
+              and os.path.exists(os.path.join(p["best_model_dir"], "1.pt"))
+              and os.path.exists(os.path.join(p["checkpoint_dir"], "1.pt")),
+              f"cli run 2 (--resume): {r2['steps_run']} steps, best "
+              f"{r2.get('best') is not None}, checkpoints "
+              f"{os.listdir(p['checkpoint_dir'])}")
+        per = {}
+        for name, (S, V) in (("stop", (11, 0)), ("resume", (2 * spe - 11,
+                                                            val_batches)),
+                             ("eval", (0, val_batches)),
+                             ("save_predictions", (0, val_batches))):
+            per[name] = check_launches(launches[name], 1,
+                                       expected_cli_launches(S, V),
+                                       f"cli run {name}")
+        # run 3 against run 2's eval, and the eval forward twice
+        ref_leaves = dict(_leaves(r2["best"]))
+        got_leaves = dict(_leaves({k: r3[k] for k in r2["best"]}))
+        eval_rel = max(abs(got_leaves[k] - v) / max(abs(v), 1e-12)
+                       for k, v in ref_leaves.items())
+        check(got_leaves.keys() == ref_leaves.keys()
+              and eval_rel <= CLI_EVAL_REL_TOL,
+              f"cli --eval vs run 2's results: max rel diff {eval_rel} "
+              f"(limit {CLI_EVAL_REL_TOL})")
+        model3 = r3["state"]["model"]
+        names = list(p["TASK_NAMES"])
+        vb = next(iter(EpochLoader(get_dataset(p, "val", None),
+                                   get_transformations(p)[1], CLI_BATCH,
+                                   shuffle=False, drop_last=False).epoch(0)))
+        step = make_eval_step(model3, names, with_stats=True)
+        x = vb["image"].to(dev)
+        e1, e2 = step({"image": x})[0], step({"image": x})[0]
+        eval_bitwise = all(torch.equal(e1[n], e2[n]) for n in names)
+        check(eval_bitwise, "cli: the eval forward differs between two runs")
+        ods = (r4.get("edge") or {}).get("odsF")
+        finite = all(np.isfinite(v) for k, v in _leaves(
+            {n: r4.get(n) for n in names}))
+        check(all(n in r4 for n in names) and finite and ods is not None
+              and native.native_available()
+              and os.path.realpath(native.lib_path()).startswith(
+                  os.path.realpath(os.path.join(here, "m3vit_tpu_torch",
+                                                "_build"))),
+              f"cli --eval --save_predictions: tasks {sorted(r4)}, finite "
+              f"{finite}, odsF {ods}, native library "
+              f"{native.native_available()} at {native.lib_path()}")
+
+        # the epoch-1 checkpoint into a fresh model and optimizer
+        fresh, _ = build_model(p, device=dev, seed=1)
+        fresh_opt, _ = build_optimizer(fresh.parameters(), p, spe)
+        restore_checkpoint(p["checkpoint_dir"], fresh, fresh_opt, index=1)
+        m2, o2 = r2["state"]["model"], r2["state"]["optimizer"]
+        sd_ok = all(torch.equal(v, fresh.state_dict()[k])
+                    for k, v in m2.state_dict().items())
+        o_ref, o_got = o2.state_dict(), fresh_opt.state_dict()
+        opt_ok = o_ref["param_groups"] == o_got["param_groups"] and all(
+            torch.equal(v, o_got["state"][i][k])
+            for i, st in o_ref["state"].items() for k, v in st.items())
+        check(sd_ok and opt_ok, f"cli checkpoint round trip: model "
+              f"{sd_ok}, optimizer {opt_ok}")
+        del fresh, fresh_opt, m2, o2, model3, e1, e2
+        cli_model = r1["state"]["model"]
+        cli_step = r1["state"]["train_step"]
+        for r in runs.values():
+            r.pop("state")
+
+        # the CLI's ms per step: between consecutive steps' returns within
+        # an epoch, after the first two steps
+        t = dict(r1["step_times"])
+        gaps = {s: (t[s] - t[s - 1]) * 1e3 for s in t
+                if s - 1 in t and (s - 1) % spe and s > 2}
+        epoch1 = [gaps[s] for s in gaps if s > spe]
+        cli_ms = float(np.median(list(gaps.values())))
+        # run 1's own train step (the CLI's, on its model) on a synthetic
+        # batch
+        batch = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
+                                p["TASKS"], CLI_BATCH, (IMG, IMG))
+        readings, synth_launches = timed_steps(
+            cli_model, names, None, batch, dev, expected_cli_launches(1, 0),
+            "cli step on a synthetic batch",
+            make_step=lambda *_: cli_step, profile=False)
+        del cli_model, cli_step, batch
+        phase_s = time.perf_counter() - t_phase
+        check(phase_s < CLI_PHASE_LIMIT_S,
+              f"cli phase took {phase_s:.1f} s (limit {CLI_PHASE_LIMIT_S})")
+        emit({"phase": "cli", "runs": {k: _summary(r)
+                                       for k, r in runs.items()},
+              "launches": launches, "launches_expected_equal": per,
+              "step_checkpoint_meta": step_meta,
+              "eval_vs_run2_max_rel": eval_rel,
+              "eval_forward_bitwise_twice": eval_bitwise,
+              "checkpoint_roundtrip_bitwise": sd_ok and opt_ok,
+              "cli_ms_per_step_median": cli_ms,
+              "cli_img_per_s": CLI_BATCH / cli_ms * 1e3,
+              "cli_step_gaps_ms": gaps, "cli_epoch1_gaps_ms": epoch1,
+              "synthetic_step": readings,
+              "phase_s": phase_s})
+    except BaseException:
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                print(f.read()[-6000:], file=sys.stderr)
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = {}
+    for ln in launches.values():
+        for k, v in ln.items():
+            total[k] = total.get(k, 0) + v
+    return total, synth_launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1848,12 +2128,14 @@ def main() -> int:
         paths[path] = phase(dev)
         torch.cuda.empty_cache()
     paths["dense_serving"], paths["dense_train"] = dense_phase(dev)
+    torch.cuda.empty_cache()
+    paths["cli"], paths["cli_synthetic_step"] = cli_phase(dev)
 
     kernels = []
     # kernel, its TPU kernel, its phase's cases, its paths (the first is
     # the one whose count is "launches")
     train_paths = ("train", "ln_mlp_train", "one_by_one", "accumulation",
-                   "noisy_gate_train", "dense_train")
+                   "noisy_gate_train", "dense_train", "cli")
     fwd_paths = train_paths[:1] + ("serving", "int8_serving",
                                    "ln_mlp_serving") + train_paths[1:] + (
         "eval_nodrop", "dense_serving")

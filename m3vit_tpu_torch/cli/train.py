@@ -1,0 +1,565 @@
+"""Multi-task (MoE-)ViT trainer CLI (counterpart of
+m3vit_tpu/cli/train.py:parse_args and run :46-878; reference
+train_fastmoe.py:76-761).
+
+One process trains on one card (``--device``, the card by default; the
+CPU only when asked for) through the port's model, its hand-written
+kernels, the worker-process loader and ``torch.save`` checkpoints:
+
+  read the config -> dataset readers + transforms -> DataLoader workers,
+  pinned batches copied non_blocking one batch ahead -> train step ->
+  step / epoch checkpoints -> online evaluation (no-drop guard, meters,
+  best model) -> --eval, --eval --save_predictions (files + edge odsF)
+
+Resume is exact: the batch order is fixed by (seed, epoch), each sample's
+augmentation by (seed, epoch, index), each step's gate noise by a
+torch.Generator seeded from (seed, global step), and a checkpoint holds
+the weights, the optimizer's state and the train step's call counter (the
+lr schedule's step).  A run stopped by --stop_after_steps or SIGTERM and
+then --resume'd ends where the uninterrupted run ends.
+
+Flags of features not ported yet raise NotImplementedError naming their
+ROADMAP.md item.  The config's ``use_checkpointing`` key is read and
+ignored (every config carries it); its flag raises.
+
+Example (a fabricated tree: scripts/fabricate_dataset.py):
+  python -m m3vit_tpu_torch.cli.train --config_env env.yml \\
+      --config_exp configs/pascal/vit_moe_small_multi_task.yml \\
+      --trBatch 8 --epochs 2 --moe_eval_capacity_factor nodrop
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from m3vit_tpu_torch.config import create_config
+from m3vit_tpu_torch.data.loader import EpochLoader, get_dataset, to_device
+from m3vit_tpu_torch.data.synthetic import synthetic_batch
+from m3vit_tpu_torch.data.transforms import get_transformations
+from m3vit_tpu_torch.evaluation.orchestrate import (
+    eval_saved_predictions,
+    evaluate_online,
+    save_model_predictions,
+    validate_results,
+)
+from m3vit_tpu_torch.losses.schemes import build_loss_fns
+from m3vit_tpu_torch.models.factory import build_model
+from m3vit_tpu_torch.moe.dispatch import parse_capacity_factor
+from m3vit_tpu_torch.train.optim import build_optimizer
+from m3vit_tpu_torch.train.step import (
+    make_eval_step,
+    make_one_by_one_train_step,
+    make_train_step,
+)
+from m3vit_tpu_torch.utils.checkpoint import (
+    latest_index,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from m3vit_tpu_torch.utils.device import resolve_device
+from m3vit_tpu_torch.utils.logging import MetricLogger, setup_stdout_tee
+
+_ITEM2 = ("rematerialisation: the port keeps every activation, ROADMAP.md "
+          "queue 1 item 2's remainder")
+_ITEM4 = ("the torch_interop functions, ROADMAP.md queue 1 item 4's "
+          "remainder")
+_ITEM6 = "expert and data parallelism, ROADMAP.md queue 1 item 6"
+_ITEM7 = ("the token variant, task-conditioned models and research knobs, "
+          "ROADMAP.md queue 1 item 7")
+_ITEM10 = "sequence parallelism, ROADMAP.md queue 1 item 10"
+_ITEM11 = "the tracing tools, ROADMAP.md queue 1 item 11"
+
+#: flags of the JAX CLI whose feature the port lacks: (flag, takes a
+#: value, why); any use raises NotImplementedError
+UNPORTED = (
+    ("--use_checkpointing", False, _ITEM2),
+    ("--pretrained", True, _ITEM4), ("--ref_ckpt", True, _ITEM4),
+    ("--backbone_random_init", False, _ITEM4),
+    ("--pos_emb_from_pretrained", False, _ITEM4),
+    ("--use_weight_scaling", False, _ITEM4),
+    ("--use_virtual_group_initialization", False, _ITEM4),
+    ("--n_data", True, _ITEM6), ("--n_expert", True, _ITEM6),
+    ("--multihost", False, _ITEM6), ("--moe_data_distributed", False, _ITEM6),
+    ("--a2a_chunks", True, _ITEM6), ("--n_seq", True, _ITEM10),
+    ("--stacked_tasks", False, _ITEM7), ("--scan_tasks", False, _ITEM7),
+    ("--scan_blocks", False, _ITEM7), ("--no_scan_tasks_remat", False, _ITEM7),
+    ("--task_one_hot", False, _ITEM7),
+    ("--gate_task_specific_dim", True, _ITEM7),
+    ("--expert_prune", False, _ITEM7),
+    ("--regu_experts_fromtask", False, _ITEM7),
+    ("--num_experts_pertask", True, _ITEM7), ("--regu_sem", False, _ITEM7),
+    ("--sem_force", False, _ITEM7), ("--regu_subimage", False, _ITEM7),
+    ("--semregu_loss_weight", True, _ITEM7),
+    ("--subimageregu_weight", True, _ITEM7),
+    ("--warmup_epochs", True, _ITEM7), ("--gate_input_ahead", False, _ITEM7),
+    ("--share_gamma", True, _ITEM7), ("--bootstrap_share_gamma", True, _ITEM7),
+    ("--bootstrap_first_moe", True, _ITEM7),
+    *((f"--tam_level{i}", True, _ITEM7) for i in range(3)),
+    ("--forward_hook", False, _ITEM11), ("--flops", False, _ITEM11),
+    ("--time", False, _ITEM11), ("--profile_dir", True, _ITEM11),
+    ("--platform", True, "a JAX option; the port takes --device"),
+)
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser("m3vit_tpu_torch trainer")
+    ap.add_argument("--config_env", default=None)
+    ap.add_argument("--config_exp", "--config_path", dest="config_exp",
+                    required=True)
+    ap.add_argument("--run_name", default=None)
+    ap.add_argument("--save_dir", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device; the card ('cuda') by default, which "
+                         "raises without CUDA ('cpu' runs the plain path)")
+    # MoE flags (reference train_fastmoe.py:76-182)
+    ap.add_argument("--moe_experts", type=int, default=None)
+    ap.add_argument("--moe_top_k", type=int, default=None)
+    ap.add_argument("--multi_gate", action="store_true", default=None)
+    ap.add_argument("--shared_prefix", action="store_true",
+                    help="run the task-independent prefix (patch embed + "
+                         "leading dense blocks) once per step instead of "
+                         "once per task")
+    ap.add_argument("--moe_gate_type", "--moe_gate_arch",
+                    dest="moe_gate_type", default=None,
+                    help="'noisy_vmoe' (default) or 'noisy' (reference "
+                         "--moe_gate_arch)")
+    ap.add_argument("--moe_mlp_ratio", type=float, default=None)
+    ap.add_argument("--one_by_one", action="store_true",
+                    help="per-task forward/backward with the gradients "
+                         "added up, one optimizer step per batch (reference "
+                         "train_utils.py:370-421); the joint step's "
+                         "gradients at ~1/T of its peak memory")
+    ap.add_argument("--weight_decay", type=float, default=None,
+                    help="override optimizer_kwargs.weight_decay")
+    ap.add_argument("--opt", default=None,
+                    help="override the optimizer name (sgd | adam | adamw)")
+    ap.add_argument("--vmoe_noisy_std", type=float, default=None)
+    ap.add_argument("--moe_noisy_gate_loss_weight", type=float, default=0.01)
+    ap.add_argument("--moe_capacity_factor", type=parse_capacity_factor,
+                    default=None,
+                    help="train dispatch capacity factor (a number, or "
+                         "'nodrop' for provably-no-drop capacity)")
+    ap.add_argument("--moe_eval_capacity_factor", type=parse_capacity_factor,
+                    default=None,
+                    help="eval dispatch capacity factor; 'nodrop' guarantees "
+                         "the reference's never-drop semantics")
+    ap.add_argument("--moe_drop_warn_threshold", type=float, default=0.01,
+                    help="warn when the train-step mean dropped-slot "
+                         "fraction exceeds this (the reference's ragged "
+                         "dispatch never drops)")
+    ap.add_argument("--allow_eval_drops", action="store_true",
+                    help="do not fail eval when the static capacity drops "
+                         "routing slots")
+    ap.add_argument("--use_cv_loss", action="store_true", default=None)
+    ap.add_argument("--use_pallas_ln_mlp", action="store_true",
+                    help="fuse the dense blocks' LN+MLP+residual sublayer "
+                         "into one kernel (K5/K6); default off")
+    ap.add_argument("--no_pallas_ln_mlp", action="store_true",
+                    help="disable the fused LN+MLP+residual kernel (over a "
+                         "YAML use_pallas_ln_mlp: true)")
+    ap.add_argument("--compute_dtype", default=None,
+                    choices=[None, "bfloat16", "float32"])
+    # run control
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--lr", type=float, default=None,
+                    help="override optimizer_kwargs.lr from the config "
+                         "(reference train_fastmoe.py:122)")
+    ap.add_argument("--trBatch", type=int, default=None)
+    ap.add_argument("--accumulation_steps", type=int, default=None)
+    ap.add_argument("--valBatch", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eval", action="store_true", help="eval-only")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--ckp", default=None,
+                    help="explicit checkpoint dir for --eval/--resume "
+                         "(defaults to the run's checkpoint dir)")
+    ap.add_argument("--ckpt_every_steps", type=int, default=0,
+                    help="save a mid-epoch step checkpoint every N train "
+                         "steps (0 = epoch granularity only); SIGTERM also "
+                         "saves a step checkpoint at the next step "
+                         "boundary, then exits")
+    ap.add_argument("--stop_after_steps", type=int, default=0,
+                    help="save a step checkpoint and exit after N global "
+                         "train steps (preemption drill)")
+    ap.add_argument("--dev_test", action="store_true",
+                    help="run one eval before training")
+    ap.add_argument("--save_predictions", action="store_true",
+                    help="with --eval: write per-image predictions to "
+                         "save_dir and score the files (reference "
+                         "save_model_predictions/eval_all_results protocol)")
+    ap.add_argument("--overfit", action="store_true")
+    ap.add_argument("--synthetic", type=int, default=0, metavar="NBATCH",
+                    help="train on N synthetic batches/epoch, made on the "
+                         "device (no dataset needed)")
+    ap.add_argument("--wandb", "--use_wandb", dest="wandb",
+                    action="store_true",
+                    help="also log to wandb (raises when it is absent)")
+    ap.add_argument("--wandb_project", default=None)
+    ap.add_argument("--wandb_entity", default=None)
+    ap.add_argument("--wandb_name", default=None,
+                    help="wandb run name (defaults to --run_name)")
+    ap.add_argument("--log_interval", type=int, default=25)
+    for flag, value, why in UNPORTED:
+        ap.add_argument(flag, default=None, help=f"not ported: {why}",
+                        **({} if value else {"action": "store_const",
+                                             "const": True}))
+    return ap.parse_args(argv)
+
+
+def _refuse_unported(args) -> None:
+    for flag, _, why in UNPORTED:
+        if getattr(args, flag[2:]) is not None:
+            raise NotImplementedError(
+                f"{flag} is not ported to m3vit_tpu_torch ({why})")
+
+
+class SyntheticLoader:
+    """A fixed set of synthetic batches made on the device (smoke mode)."""
+
+    def __init__(self, tasks, n_batches: int, batch_size: int, img_size,
+                 device):
+        self.batches = []
+        for i in range(n_batches):
+            gen = torch.Generator(device=device).manual_seed(i)
+            b = synthetic_batch(gen, tasks, batch_size, tuple(img_size))
+            b["meta"] = [{"image": f"synth_{i}_{j}",
+                          "im_size": tuple(img_size)}
+                         for j in range(batch_size)]
+            self.batches.append(b)
+
+    def __len__(self):
+        return len(self.batches)
+
+    def epoch(self, epoch: int, start: int = 0):
+        return iter(self.batches[start:])
+
+
+def step_seed(seed: int, global_step: int) -> int:
+    """The gate-noise seed of train step `global_step` of a run."""
+    return int(np.random.SeedSequence([seed, global_step])
+               .generate_state(1, np.uint64)[0])
+
+
+def _plain(d):
+    if isinstance(d, dict):
+        return {k: _plain(v) for k, v in d.items()}
+    if isinstance(d, (list, tuple)):
+        return [_plain(v) for v in d]
+    try:
+        return float(d)
+    except Exception:
+        return d
+
+
+def _config(args):
+    overrides = {
+        k: getattr(args, k)
+        for k in ("moe_experts", "moe_top_k", "vmoe_noisy_std",
+                  "moe_capacity_factor", "moe_eval_capacity_factor",
+                  "epochs", "trBatch", "valBatch", "compute_dtype",
+                  "save_dir", "run_name", "accumulation_steps",
+                  "moe_gate_type", "moe_mlp_ratio")
+        if getattr(args, k) is not None
+    }
+    if args.allow_eval_drops:
+        overrides["allow_eval_drops"] = True
+    # three-state flags: the YAML value wins unless the flag is given
+    for k in ("multi_gate", "use_cv_loss"):
+        if getattr(args, k) is not None:
+            overrides[k] = getattr(args, k)
+    if args.use_pallas_ln_mlp and args.no_pallas_ln_mlp:
+        raise SystemExit(
+            "--use_pallas_ln_mlp and --no_pallas_ln_mlp are "
+            "contradictory; pass at most one")
+    if args.use_pallas_ln_mlp:
+        overrides["use_pallas_ln_mlp"] = True
+    if args.no_pallas_ln_mlp:
+        overrides["use_pallas_ln_mlp"] = False
+    if args.shared_prefix:
+        overrides["shared_prefix"] = True
+    if args.overfit:
+        overrides["overfit"] = True
+    p = create_config(args.config_env, args.config_exp, overrides,
+                      make_dirs=True)
+    if p.get("shared_prefix") and not (
+            p.get("multi_gate")
+            and p.get("backbone") == "VisionTransformer_moe"):
+        print("WARNING: shared_prefix needs per-task routing (multi_gate) "
+              "on the VisionTransformer_moe backbone; ignored")
+        p["shared_prefix"] = False
+    if args.lr is not None:
+        p["optimizer_kwargs"]["lr"] = args.lr
+    if args.weight_decay is not None:
+        p["optimizer_kwargs"]["weight_decay"] = args.weight_decay
+    if args.opt is not None:
+        p["optimizer"] = args.opt
+    return p
+
+
+def run(args) -> Dict:
+    """Trains or evaluates as `args` say.  Returns {"stopped_at_step": n}
+    after --stop_after_steps or SIGTERM, the eval results with --eval,
+    else {"best": the best results}; each with "steps_run" (train steps
+    this call ran), "step_times" ([(global step, perf_counter when the
+    step's call returned)], no device sync) and "state" ({"model",
+    "optimizer", "train_step"}, as the run left them)."""
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+    p = _config(args)
+    restore_streams = setup_stdout_tee(p["output_dir"])
+    logger = None
+    loaders = []
+    prev_sigterm = None
+    preempted = {"flag": False}
+
+    def _on_sigterm(signum, frame):
+        # preemption notice: finish the in-flight step, checkpoint, exit
+        preempted["flag"] = True
+
+    try:
+        prev_sigterm = signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:
+        pass  # not in the main thread (library embedding)
+    try:
+        logger = MetricLogger(p["output_dir"], use_wandb=args.wandb,
+                              config=p,
+                              run_name=args.wandb_name or args.run_name,
+                              project=args.wandb_project,
+                              entity=args.wandb_entity)
+        return _run(args, p, device, logger, loaders, preempted)
+    finally:
+        for ld in loaders:
+            ld.close()
+        if logger is not None:
+            logger.close()
+        if prev_sigterm is not None:
+            signal.signal(signal.SIGTERM, prev_sigterm)
+        restore_streams()
+
+
+def _run(args, p, device, logger, loaders, preempted) -> Dict:
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    print(f"device: {device} ({name})")
+    print(f"tasks: {p['TASK_NAMES']}")
+    model, _ = build_model(p, device=device, seed=args.seed)
+    tasks = list(p["TASK_NAMES"])
+    loss_fns = build_loss_fns(p)
+    loss_weights = dict(
+        (p.get("loss_kwargs") or {}).get("loss_weights", {t: 1.0 for t in tasks})
+    )
+
+    batch_size = int(p.get("trBatch", 2))
+    val_batch = int(p.get("valBatch", p.get("trBatch", 2)))
+    if args.synthetic:
+        train_loader = SyntheticLoader(p["TASKS"], args.synthetic, batch_size,
+                                       p["train_scale"], device)
+        val_loader = SyntheticLoader(p["TASKS"], max(args.synthetic // 2, 1),
+                                     val_batch, p["test_scale"], device)
+    else:
+        tr, ts = get_transformations(p)
+        nworkers = int(p.get("nworkers", 8))
+        pin = device.type == "cuda"
+        train_loader = EpochLoader(
+            get_dataset(p, "train", None, overfit=p["overfit"]), tr,
+            batch_size=batch_size, shuffle=True, seed=args.seed,
+            num_workers=nworkers, pin_memory=pin)
+        loaders.append(train_loader)
+        val_loader = EpochLoader(
+            get_dataset(p, "val", None, overfit=p["overfit"]), ts,
+            batch_size=val_batch, shuffle=False, drop_last=False,
+            seed=args.seed, num_workers=nworkers, pin_memory=pin)
+        loaders.append(val_loader)
+
+    steps_per_epoch = max(len(train_loader), 1)
+    epochs = int(p["epochs"])
+    accum = max(int(p.get("accumulation_steps", 1)), 1)
+    optimizer, lr_schedule = build_optimizer(model.parameters(), p,
+                                             steps_per_epoch)
+    n_params = sum(x.numel() for x in model.parameters())
+    print(f"parameters: {n_params/1e6:.2f}M, steps/epoch: {steps_per_epoch}")
+
+    cv_w = float(args.moe_noisy_gate_loss_weight) if p.get("use_cv_loss") \
+        else 0.0
+    if args.one_by_one:
+        if accum > 1:
+            raise NotImplementedError(
+                "--one_by_one with accumulation_steps > 1 is not ported to "
+                "m3vit_tpu_torch")
+        train_step = make_one_by_one_train_step(
+            model, tasks, loss_fns, loss_weights, optimizer, lr_schedule,
+            cv_weight=cv_w)
+    else:
+        train_step = make_train_step(
+            model, tasks, loss_fns, loss_weights, optimizer, lr_schedule,
+            cv_weight=cv_w, analysis_metrics=True, accumulation_steps=accum)
+    # stats-carrying eval step: evaluate_online enforces the reference's
+    # no-drop semantics on dropped_slot_fraction (see _DropGuard)
+    eval_step = make_eval_step(model, tasks, with_stats=True)
+
+    start_epoch = 0
+    skip_iters = 0
+    step_ckpt_dir = os.path.join(p["output_dir"], "step_checkpoint")
+    if args.resume or args.eval:
+        ckpt_dir = args.ckp or p["checkpoint_dir"]
+        meta = restore_checkpoint(ckpt_dir, model, optimizer)
+        if meta is not None:
+            train_step.step = meta["train_step_calls"]
+            start_epoch = int(meta.get("epoch", -1)) + 1
+            print(f"resumed from epoch {start_epoch - 1}")
+        elif args.eval:
+            raise FileNotFoundError(f"--eval needs a checkpoint in {ckpt_dir}")
+    if args.resume and not args.eval and args.ckp is None:
+        # step-granularity resume: the run's own mid-epoch checkpoint wins
+        # when it is newer than the last epoch checkpoint (an explicit --ckp
+        # always wins).  skip_iters == steps_per_epoch means the epoch's
+        # steps all ran but its end-of-epoch eval/checkpoint did not:
+        # re-enter that epoch with zero iterations so they still do.
+        idx = latest_index(step_ckpt_dir)
+        if idx is not None:
+            with open(os.path.join(step_ckpt_dir, f"meta_{idx}.json")) as f:
+                s_meta = json.load(f)
+            s_epoch, s_next = int(s_meta["epoch"]), int(s_meta["next_it"])
+            if s_epoch * steps_per_epoch + s_next > \
+                    start_epoch * steps_per_epoch:
+                meta = restore_checkpoint(step_ckpt_dir, model, optimizer,
+                                          index=idx)
+                train_step.step = meta["train_step_calls"]
+                start_epoch, skip_iters = s_epoch, s_next
+                print(f"resumed mid-epoch: epoch {s_epoch} iter {s_next}")
+
+    out: Dict = {"steps_run": 0, "step_times": [],
+                 "state": {"model": model, "optimizer": optimizer,
+                           "train_step": train_step}}
+
+    def run_eval(epoch: int) -> Dict:
+        batches = to_device(val_loader.epoch(epoch), device, keys=("image",))
+        results = evaluate_online(p, eval_step, batches, epoch)
+        logger.log_val_performance(results, epoch)
+        print(f"[epoch {epoch}] val: "
+              + ", ".join(f"{t}={results[t]}" for t in tasks))
+        if "multi_task_performance" in results:
+            print(f"[epoch {epoch}] Δm = "
+                  f"{100 * results['multi_task_performance']:.2f}%")
+        return results
+
+    if args.eval:
+        if args.save_predictions:
+            batches = to_device(val_loader.epoch(start_epoch), device,
+                                keys=("image",))
+            save_dir = save_model_predictions(p, eval_step, batches)
+            print(f"predictions written to {save_dir}")
+            if args.synthetic:
+                return out
+            ds = get_dataset(p, "val", None, overfit=p["overfit"])
+            results = eval_saved_predictions(p, save_dir, ds)
+            logger.log_val_performance(results, start_epoch)
+            print("file-protocol results:", _plain(results))
+            return {**results, **out}
+        return {**run_eval(start_epoch), **out}
+    if args.dev_test:
+        run_eval(start_epoch)
+
+    eval_interval = int(p.get("eval_interval", 1))
+    final10 = bool(p.get("eval_final_10_epochs_only", False))
+    best: Optional[Dict] = None
+    opt_steps_per_epoch = max(steps_per_epoch // accum, 1)
+    metrics: Dict = {}
+
+    for epoch in range(start_epoch, epochs):
+        t_epoch = time.time()
+        # reference per-epoch logging surface: epoch counter, adjusted lr
+        # (wandb_logger.py:302-323) + device/host memory
+        logger.log_epoch(epoch)
+        logger.log_learning_rate(lr_schedule(epoch * opt_steps_per_epoch),
+                                 epoch * steps_per_epoch)
+        logger.log_memory(epoch * steps_per_epoch)
+        it0 = skip_iters if epoch == start_epoch else 0
+        # a mid-epoch resume starts the sampler at it0: the batches before
+        # it are never read
+        batches = to_device(train_loader.epoch(epoch, start=it0), device)
+        t_win = time.time()
+        for it, batch in enumerate(batches, start=it0):
+            batch.pop("meta", None)
+            # this step's gate noise, from (seed, the step's index)
+            noise = torch.Generator(device=device).manual_seed(
+                step_seed(args.seed, epoch * steps_per_epoch + it))
+            metrics = train_step(batch, noise)
+            global_step = epoch * steps_per_epoch + it + 1   # steps done
+            out["steps_run"] += 1
+            out["step_times"].append((global_step, time.perf_counter()))
+            if (it + 1) % args.log_interval == 0:
+                loss = float(metrics["loss_total"])  # sync point
+                dt = time.time() - t_win
+                ips = args.log_interval * batch_size / dt
+                t_win = time.time()
+                logger.log_train_losses(
+                    {k: (v.tolist() if v.ndim else float(v))
+                     for k, v in metrics.items()}
+                    | {"throughput_images_per_sec": ips}, epoch,
+                    global_step - 1)
+                print(f"[epoch {epoch} it {it+1}/{steps_per_epoch}] "
+                      f"loss={loss:.4f} ips={ips:.1f}")
+                drop = float(metrics.get("moe_dropped_frac", 0.0))
+                if drop > args.moe_drop_warn_threshold:
+                    print(f"WARNING: mean MoE dropped-slot fraction "
+                          f"{drop:.3f} > {args.moe_drop_warn_threshold} — "
+                          f"raise moe_capacity_factor (or use 'nodrop'); "
+                          f"the reference's ragged dispatch never drops")
+            stop_now = preempted["flag"] or (
+                args.stop_after_steps and global_step >= args.stop_after_steps)
+            periodic = (args.ckpt_every_steps
+                        and (it + 1) % args.ckpt_every_steps == 0
+                        and it + 1 < steps_per_epoch)
+            if periodic or stop_now:
+                save_checkpoint(step_ckpt_dir, global_step, model,
+                                optimizer, train_step.step,
+                                {"epoch": epoch, "next_it": it + 1,
+                                 "mid_epoch": True})
+            if stop_now:
+                why = "SIGTERM" if preempted["flag"] else "--stop_after_steps"
+                print(f"[{why}] step checkpoint saved at epoch {epoch} "
+                      f"iter {it + 1} -> {step_ckpt_dir}; exiting")
+                return {"stopped_at_step": global_step, **out}
+        # epoch end: final loss sync (a fully-trained resumed epoch —
+        # skip_iters == steps_per_epoch — runs zero iterations here and goes
+        # straight to its pending eval/checkpoint)
+        if it0 < steps_per_epoch:
+            loss = float(metrics["loss_total"])
+            print(f"[epoch {epoch}] done in {time.time()-t_epoch:.1f}s "
+                  f"loss={loss:.4f}")
+
+        # reference policy (train_fastmoe.py:643-657): eval every
+        # eval_interval epochs; with eval_final_10_epochs_only, only within
+        # the last 10 epochs (the final epoch always evaluates)
+        do_eval = ((epoch + 1) % eval_interval == 0) or epoch == epochs - 1
+        if final10 and epoch < epochs - 10 and epoch != epochs - 1:
+            do_eval = False
+        if do_eval:
+            results = run_eval(epoch)
+            best, improved = validate_results(p, results, best)
+            if improved:
+                save_checkpoint(p["best_model_dir"], epoch, model, optimizer,
+                                train_step.step,
+                                {"results": _plain(results)})
+                logger.log_best(results, epoch)
+        save_checkpoint(p["checkpoint_dir"], epoch, model, optimizer,
+                        train_step.step)
+
+    return {"best": best, **out}
+
+
+def main(argv=None) -> Dict:
+    return run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Task registry: per-dataset output dims, interpolation modes, loss wiring.
 
-The port's own copy of m3vit_tpu/tasks.py:20-83 (reference
+The port's own copy of m3vit_tpu/tasks.py:20-87 (reference
 utils/config.py:17-94), so the port imports nothing of the JAX package.
 """
 
@@ -76,3 +76,7 @@ def parse_task_dictionary(
         extra["depthloss"] = "l1"
 
     return tasks, extra
+
+
+def task_names(tasks: List[TaskSpec]) -> List[str]:
+    return [t.name for t in tasks]
