@@ -36,7 +36,16 @@ random weights) along each of its paths, the kernels' launch counts set to
   best-model and epoch checkpoints), --eval and --eval
   --save_predictions, launches counted over each run; a checkpoint loaded
   into a fresh model and optimizer; the CLI's step time beside a
-  synthetic-batch step.
+  synthetic-batch step;
+- recipe: the paper's training recipe on the cli phase's tree: the
+  headline config from a DeiT-small-format checkpoint written here
+  (--pretrained, experts upcycled from the dense MLPs, checked bit for
+  bit; peak memory and step time with and without rematerialisation),
+  its model through rank-sharded reference files and --ref_ckpt --eval
+  bit for bit, the dense ViT-small with TAM (--pos_emb_from_pretrained;
+  rematerialised against not), and the NYUD dropout/drop-path config at
+  480 x 640, whose training leaves the FFN kernels as the JAX package
+  does.
 Each phase prints one JSON line; the line before the last is nvidia-smi's
 card name and power limit, and the last line is {"ok": true, "device":
 {...}}.  Any failed check exits non-zero before that line; without CUDA the
@@ -887,7 +896,7 @@ def serving_phase(dev):
 
 PARAM_GROUPS = (("attention", ".attn."), ("dense_mlp", ".mlp.fc"),
                 ("experts", ".mlp.experts."), ("gates", ".mlp.gate."),
-                ("heads", "decoders."))
+                ("heads", "decoders."), ("tam", "tam_model"))
 
 
 def param_group(name: str) -> str:
@@ -1128,6 +1137,7 @@ def timed_steps(model, names, loss_fns, batch, dev, expected, what: str,
               f"{what}: losses over {TIMED_STEPS} timed steps do not fall: "
               f"{losses}")
     per_step = check_launches(launches, TIMED_STEPS, expected, what)
+    B = batch["image"].shape[0]
     step_ms = [a.elapsed_time(b) for a, b in ev]
     median = float(np.median(step_ms))
     prof = {}
@@ -1136,9 +1146,9 @@ def timed_steps(model, names, loss_fns, batch, dev, expected, what: str,
         prof = {"device_ms_per_step": p["device_ms"],
                 "device_idle_frac": 1.0 - p["device_ms"] / median,
                 "top_kernels": p["top"]}
-    return {"batch": TRAIN_BATCH, "steps": TIMED_STEPS,
+    return {"batch": B, "steps": TIMED_STEPS,
             "step_ms_median": median, "step_ms": step_ms, **prof,
-            "img_per_s": TIMED_STEPS * TRAIN_BATCH / window_s,
+            "img_per_s": TIMED_STEPS * B / window_s,
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches_per_step": per_step, "losses": losses,
             **({"moe_dropped_frac": m["moe_dropped_frac"].item()}
@@ -1827,14 +1837,18 @@ CLI_EVAL_REL_TOL = 1e-5      # --eval against the results of run 2's eval
 CLI_PHASE_LIMIT_S = 150.0
 
 
-def expected_cli_launches(steps: int, eval_batches: int):
+def expected_cli_launches(steps: int, eval_batches: int,
+                          remat: bool = True):
     """K1-K4 launches of `steps` joint train steps without the shared
-    prefix (60 each) and `eval_batches` 5-task no-drop eval batches (12 K1
-    + 12 K3 a task pass); kernels launched 0 times left out."""
+    prefix (12 each per task pass) and `eval_batches` no-drop eval batches
+    (12 K1 + 12 K3 a task pass); kernels launched 0 times left out.  With
+    remat (the headline config's use_checkpointing) the backward runs
+    every block's forward again: one more K1 and one more K3 a block and
+    task pass."""
     per = expected_train_launches(12, 1)
     out = {k: 5 * v * steps for k, v in per.items()}
     for k in ("flash_attention_fwd", "expert_ffn_fwd"):
-        out[k] += 60 * eval_batches
+        out[k] += 12 * 5 * (eval_batches + (steps if remat else 0))
     return {k: v for k, v in out.items() if v}
 
 
@@ -1858,23 +1872,24 @@ def _summary(result):
     return result
 
 
-def cli_phase(dev):
+def cli_phase(dev, root: str):
     """The trainer CLI (python -m m3vit_tpu_torch.cli.train) on a PASCAL_MT
-    tree made by scripts/fabricate_dataset.py, with the headline config
-    (greedy edge matcher, 5 thresholds): the worker loader alone (its
-    first batches against in-process loading, bit for bit), then four
+    tree made by scripts/fabricate_dataset.py under `root`, with the
+    headline config (greedy edge matcher, 5 thresholds; its
+    use_checkpointing rematerialises the blocks): the worker loader alone
+    (its first batches against in-process loading, bit for bit), then four
     in-process runs, launches counted over each: 11 steps stopped by
     --stop_after_steps, --resume (the 5 steps left, one eval, the best
     and epoch-1 checkpoints), --eval (run 2's results) and --eval
     --save_predictions (files, edge odsF); the epoch-1 checkpoint loaded
     into a fresh model and optimizer; the CLI's ms per step beside run 1's
     own train step (analysis metrics on, as the CLI builds it) timed on a
-    synthetic batch."""
+    synthetic batch.  Leaves root/env.yml and root/config.yml (the headline
+    config as run) for the recipe phase."""
     import yaml
 
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
-    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     log_path = os.path.join(root, "cli.log")
     try:
         db = os.path.join(root, "PASCAL_MT")
@@ -2067,13 +2082,385 @@ def cli_phase(dev):
             with open(log_path) as f:
                 print(f.read()[-6000:], file=sys.stderr)
         raise
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
     total = {}
     for ln in launches.values():
         for k, v in ln.items():
             total[k] = total.get(k, 0) + v
     return total, synth_launches
+
+
+# the recipe phase: the paper's training recipe through the CLI on the cli
+# phase's tree, a DeiT-small-format checkpoint fabricated from a seed
+DEIT_CONFIG = "configs/pascal/vit/pup_vit_small_deit_multi_task_baseline.yml"
+DROP_CONFIG = ("configs/nyud/vit_moe/pup_moe_vit_small_multi_task_baseline_"
+               "drop0.1_droppath0.1.yml")
+RECIPE_PHASE_LIMIT_S = 150.0
+RECIPE_STEPS = 2           # CLI train steps of runs A and B
+
+
+def write_deit_checkpoint(path: str, depth: int = 12, embed: int = 384,
+                          hidden: int = 1536, classes: int = 1000):
+    """A DeiT-small checkpoint in timm's names and shapes (cls token,
+    pos_embed [1, 197, 384], 12 blocks, fc1 [1536, 384], a 1000-class
+    head) of seeded normals, saved as {"model": state dict}; returns it."""
+    gen = torch.Generator().manual_seed(11)
+
+    def a(*shape):
+        return torch.randn(shape, generator=gen) * 0.02
+
+    sd = {"cls_token": a(1, 1, embed), "pos_embed": a(1, 197, embed),
+          "patch_embed.proj.weight": a(embed, 3, 16, 16),
+          "patch_embed.proj.bias": a(embed), "norm.weight": a(embed),
+          "norm.bias": a(embed), "head.weight": a(classes, embed),
+          "head.bias": a(classes)}
+    for i in range(depth):
+        for n, shape in (("norm1", (embed,)), ("norm2", (embed,)),
+                         ("attn.qkv", (3 * embed, embed)),
+                         ("attn.proj", (embed, embed)),
+                         ("mlp.fc1", (hidden, embed)),
+                         ("mlp.fc2", (embed, hidden))):
+            sd[f"blocks.{i}.{n}.weight"] = a(*shape)
+            sd[f"blocks.{i}.{n}.bias"] = a(shape[0])
+    torch.save({"model": sd}, path)
+    return sd
+
+
+def split_upcycle(sd, i: int, experts: int, hidden: int, scale: float):
+    """Block i's split-mode expert banks from a DeiT state dict, computed
+    here from its own slicing: expert e holds dense-hidden chunk e % G of
+    fc1 (rows) and fc2 (columns), weights and fc1's bias times `scale`."""
+    fc1, b1 = sd[f"blocks.{i}.mlp.fc1.weight"], sd[f"blocks.{i}.mlp.fc1.bias"]
+    fc2, b2 = sd[f"blocks.{i}.mlp.fc2.weight"], sd[f"blocks.{i}.mlp.fc2.bias"]
+    G = fc1.shape[0] // hidden
+    chunk = [slice((e % G) * hidden, (e % G + 1) * hidden)
+             for e in range(experts)]
+    return {"htoh4.weight": torch.stack([fc1[c] * scale for c in chunk]),
+            "htoh4.bias": torch.stack([b1[c] * scale for c in chunk]),
+            "h4toh.weight": torch.stack([fc2[:, c] * scale for c in chunk]),
+            "h4toh.bias": b2[None].expand(experts, -1)}
+
+
+def grads_with_and_without_remat(model, names, loss_fns, weights, batch,
+                                 dev):
+    """Forwards and backwards of `model` from its current state on `batch`,
+    the same generator seed for the masks and gate noise each time: the
+    train step's loss with use_checkpointing on, off, and off again
+    ((loss, parameter gradients) each; the last pair's difference is the
+    floor the heads' atomic upsampling backward sets), then the backbone
+    alone (an MoE backbone routing for task 0, gate noise drawn from the
+    same seed) under a fixed random cotangent on its output tokens, on and
+    off (its parameter gradients each)."""
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    steps, alone = [], []
+    for remat in (True, False, False):
+        model.load_state_dict(init)
+        model.backbone.use_checkpointing = remat
+        model.zero_grad(set_to_none=True)
+        model.train()
+        noise = torch.Generator(device=dev).manual_seed(4)
+        pred, cv, _ = model(batch["image"], noise=noise)
+        total = multi_task_loss(pred, batch, names, loss_fns,
+                                weights)["total"] + 0.01 * cv
+        total.backward()
+        steps.append((total.detach().clone(), param_grads(model)))
+    cotangent = None
+    for remat in (True, False):
+        model.load_state_dict(init)
+        model.backbone.use_checkpointing = remat
+        model.zero_grad(set_to_none=True)
+        tokens = model.backbone(batch["image"], 0, torch.Generator(
+            device=dev).manual_seed(4))
+        if isinstance(tokens, tuple):      # the MoE backbone's (tokens, cv,
+            tokens = tokens[0]             # stats)
+        if cotangent is None:
+            cotangent = torch.randn(tokens.shape, device=dev,
+                                    generator=torch.Generator(
+                                        device=dev).manual_seed(3))
+        tokens.float().backward(cotangent)
+        alone.append(param_grads(model))
+    model.load_state_dict(init)
+    model.backbone.use_checkpointing = True
+    return steps, alone
+
+
+def check_remat(readings, what: str):
+    """Checks grads_with_and_without_remat's readings: the loss bit for
+    bit, each backbone parameter group's gradient within
+    BACKBONE_GRAD_REL_TOL (the heads' upsampling backward adds with
+    atomics: two steps without remat differ too, reported), and the
+    backbone alone bit for bit; returns them for the phase's line."""
+    steps, alone = readings
+    (loss_r, g_r), (loss_n, g_n), (_, g_n2) = steps
+    by_group = rel_by_group(g_r, g_n)
+    groups = {g: v for g, v in by_group.items() if g not in ("heads", "tam")}
+    alone_bitwise = alone[0].keys() == alone[1].keys() and all(
+        torch.equal(v, alone[1][k]) for k, v in alone[0].items())
+    check(torch.equal(loss_r, loss_n)
+          and max(groups.values()) <= BACKBONE_GRAD_REL_TOL and alone_bitwise,
+          f"{what}, remat against none: loss {loss_r.item()} / "
+          f"{loss_n.item()}, backbone gradients {groups}, the backbone "
+          f"alone bitwise {alone_bitwise}")
+    return {"loss_bitwise": torch.equal(loss_r, loss_n),
+            "backbone_grad_rel": groups,
+            "no_remat_twice_grad_rel": rel_by_group(g_n2, g_n),
+            "backbone_alone_grads_bitwise": alone_bitwise,
+            "heads_and_tam_grad_rel": {g: v for g, v in by_group.items()
+                                       if g in ("heads", "tam")}}
+
+
+def recipe_phase(dev, root: str):
+    """The paper's training recipe through the CLI, at full width, on the
+    cli phase's tree and headline config (root/env.yml, root/config.yml):
+    - run A: the headline config with --pretrained (a DeiT-small-format
+      file written here) --use_weight_scaling, RECIPE_STEPS steps: right
+      after the load, every expert bank is the split-mode upcycle (G = 4,
+      E = 16, scale sqrt(E G^2 / K) = 4) of the file bit for bit and
+      pos_embed kept its initial values; K1-K4 launched exactly (remat);
+      its train step's peak memory and ms with use_checkpointing on and off;
+      remat against none as in run B below (gate noise drawn from one seed
+      both times, so routing repeats);
+    - run B: DEIT_CONFIG (dense ViT-small, five tasks, TAM level 0, remat,
+      512^2, B=8) with --pretrained --pos_emb_from_pretrained: launches,
+      finite tam_level0 losses, step ms and peak memory; one step with
+      remat and one without on the same weights, batch and masks
+      (check_remat): the loss bit for bit, each backbone parameter group's
+      gradient within BACKBONE_GRAD_REL_TOL, and the backbone alone under a
+      fixed cotangent: its gradients bit for bit;
+    - the round trip: run A's model saved as 2 rank shards, loaded by
+      --ref_ckpt ... --eval (a synthetic eval batch): the state dict bit
+      for bit, and the eval forward bitwise run A's own;
+    - the dropout step: DROP_CONFIG at full width (480 x 640, B=2,
+      multi-gate, E=16, K=2, expert hidden 768, TAM, remat) on a synthetic
+      batch: K1/K2 exactly per train step and K3/K4 not at all (the JAX
+      package's rule: no FFN kernel under dropout), K1/K3 in eval as
+      usual, the same loss bits from the same seed twice, step ms."""
+    import yaml
+
+    from m3vit_tpu_torch.cli import train as cli_mod
+    from m3vit_tpu_torch.utils.torch_interop import (
+        save_reference_sharded_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env, cfg_a = (os.path.join(root, n) for n in ("env.yml", "config.yml"))
+    p_a = create_config(env, cfg_a)
+    kw = p_a["backbone_kwargs"]
+    deit_path = os.path.join(root, "deit_small.pth")
+    deit = write_deit_checkpoint(
+        deit_path, int(kw["depth"]), int(kw["embed_dim"]),
+        int(kw["embed_dim"] * kw["mlp_ratio"]))
+    log_path = os.path.join(root, "recipe.log")
+    paths = {}
+    base = ["--config_env", env, "--trBatch", str(CLI_BATCH), "--valBatch",
+            str(CLI_BATCH), "--epochs", "1", "--moe_eval_capacity_factor",
+            "nodrop", "--stop_after_steps", str(RECIPE_STEPS)]
+
+    # run A, the banks read right after the load
+    loaded = {}
+    load = cli_mod.load_pretrained_backbone
+
+    def load_and_read(model, *args, **kw):
+        before = model.backbone.pos_embed.detach().clone()
+        missing = load(model, *args, **kw)
+        loaded["pos_embed_kept"] = torch.equal(
+            before, model.backbone.pos_embed.detach())
+        loaded["banks"] = {k: v.detach().clone()
+                           for k, v in model.state_dict().items()
+                           if ".mlp.experts." in k}
+        loaded["missing"] = len(missing)
+        return missing
+
+    try:
+        cli_mod.load_pretrained_backbone = load_and_read
+        with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+            _build.reset_launches()        # the run A path starts here
+            run_a = cli_main(base + ["--config_exp", cfg_a, "--run_name",
+                                     "recipe_a", "--pretrained", deit_path,
+                                     "--use_weight_scaling"])
+            torch.cuda.synchronize()
+            paths["recipe_moe"] = dict(_build.launches)   # ... ends here
+        cli_mod.load_pretrained_backbone = load
+        names_a = list(p_a["TASK_NAMES"])
+        model_a = run_a["state"]["model"]
+        moe = model_a.backbone.blocks[1].mlp
+        E, K, hidden = (moe.num_experts, moe.top_k,
+                        moe.experts.htoh4.weight.shape[1])
+        G = deit["blocks.1.mlp.fc1.weight"].shape[0] // hidden
+        banks_ok = True
+        for i in range(1, len(model_a.backbone.blocks), 2):
+            ref = split_upcycle(deit, i, E, hidden,
+                                (E // G * G * G / K) ** 0.5)
+            for k, v in ref.items():
+                got = loaded["banks"][f"backbone.blocks.{i}.mlp.experts.{k}"]
+                banks_ok &= torch.equal(got.cpu(), v)
+        check(banks_ok and loaded["pos_embed_kept"],
+              f"recipe run A: expert banks the file's split upcycle "
+              f"{banks_ok}, pos_embed kept {loaded['pos_embed_kept']}")
+        check(run_a.get("stopped_at_step") == RECIPE_STEPS,
+              f"recipe run A stopped at {run_a.get('stopped_at_step')}")
+        launches_a = check_launches(
+            paths["recipe_moe"], 1, expected_cli_launches(RECIPE_STEPS, 0),
+            "recipe run A")
+        batch = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
+                                p_a["TASKS"], CLI_BATCH, (IMG, IMG))
+        step_a = run_a["state"]["train_step"]
+        memory_a = {}
+        for remat in (True, False):
+            model_a.backbone.use_checkpointing = remat
+            memory_a["remat" if remat else "no_remat"] = timed_steps(
+                model_a, names_a, None, batch, dev,
+                expected_cli_launches(1, 0, remat=remat),
+                f"recipe run A step, use_checkpointing {remat}",
+                make_step=lambda *_: step_a, profile=False)[0]
+        remat_a = check_remat(grads_with_and_without_remat(
+            model_a, names_a, build_loss_fns(p_a),
+            p_a["loss_kwargs"]["loss_weights"], batch, dev), "recipe run A")
+
+        # the round trip through rank shards and --ref_ckpt --eval
+        shards = os.path.join(root, "ref_a")
+        save_reference_sharded_checkpoint(model_a.state_dict(), shards, 2,
+                                          extra={"epoch": 0})
+        with open(log_path, "a") as log, contextlib.redirect_stdout(log):
+            run_rt = cli_main(["--config_env", env, "--config_exp", cfg_a,
+                               "--run_name", "recipe_rt", "--ref_ckpt",
+                               shards, "--eval", "--synthetic", "1",
+                               "--valBatch", str(CLI_BATCH),
+                               "--moe_eval_capacity_factor", "nodrop"])
+        model_rt = run_rt["state"]["model"]
+        sd_rt = model_rt.state_dict()
+        sd_same = sd_rt.keys() == model_a.state_dict().keys() and all(
+            torch.equal(v, sd_rt[k]) for k, v in model_a.state_dict().items())
+        ea = make_eval_step(model_a, names_a)(batch)
+        er = make_eval_step(model_rt, names_a)(batch)
+        eval_same = all(torch.equal(ea[n], er[n]) for n in names_a)
+        check(sd_same and eval_same and not run_rt["ref_ckpt_missing"],
+              f"recipe round trip: state dict bitwise {sd_same}, eval "
+              f"forward bitwise {eval_same}, left at init "
+              f"{run_rt['ref_ckpt_missing'][:4]}")
+        del run_a, run_rt, model_a, model_rt, step_a, sd_rt, ea, er
+        torch.cuda.empty_cache()
+
+        # run B: dense ViT-small with TAM level 0 from the DeiT file
+        with open(os.path.join(here, DEIT_CONFIG)) as f:
+            exp = yaml.safe_load(f)
+        cfg_b = os.path.join(root, "config_b.yml")
+        with open(cfg_b, "w") as f:
+            yaml.safe_dump(exp, f)
+        with open(log_path, "a") as log, contextlib.redirect_stdout(log):
+            _build.reset_launches()        # the run B path starts here
+            run_b = cli_main(base + ["--config_exp", cfg_b, "--run_name",
+                                     "recipe_b", "--pretrained", deit_path,
+                                     "--pos_emb_from_pretrained"])
+            torch.cuda.synchronize()
+            paths["recipe_dense_tam"] = dict(_build.launches)  # ... ends
+        p_b = create_config(env, cfg_b)
+        names_b = list(p_b["TASK_NAMES"])
+        model_b, step_b = run_b["state"]["model"], run_b["state"]["train_step"]
+        per_step_b = {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
+                      "expert_ffn_fwd": 24, "expert_ffn_bwd": 12}
+        launches_b = check_launches(paths["recipe_dense_tam"], RECIPE_STEPS,
+                                    per_step_b, "recipe run B")
+        # the dense ViT takes every tensor of the file, pos_embed resized
+        check(run_b.get("stopped_at_step") == RECIPE_STEPS
+              and not run_b["pretrained_missing"],
+              f"recipe run B: stopped at {run_b.get('stopped_at_step')}, "
+              f"left at init {run_b['pretrained_missing'][:4]}")
+        batch_b = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
+                                  p_b["TASKS"], CLI_BATCH, (IMG, IMG))
+        loss_fns_b = build_loss_fns(p_b)
+        weights_b = p_b["loss_kwargs"]["loss_weights"]
+        remat_b = check_remat(grads_with_and_without_remat(
+            model_b, names_b, loss_fns_b, weights_b, batch_b, dev),
+            "recipe run B")
+        readings_b, _ = timed_steps(
+            model_b, names_b, None, batch_b, dev, per_step_b,
+            "recipe run B step", make_step=lambda *_: step_b, profile=False)
+        tam_losses = {k: v for k, v in step_b(batch_b, torch.Generator(
+            device=dev).manual_seed(5)).items() if "tam_level0" in k}
+        check(len(tam_losses) == len(names_b) and all(
+            np.isfinite(v.item()) for v in tam_losses.values()),
+            f"recipe run B: tam_level0 losses {tam_losses}")
+        del run_b, model_b, step_b
+        torch.cuda.empty_cache()
+
+        # the dropout step: NYUD, multi-gate MoE, TAM, remat, synthetic
+        with open(os.path.join(here, DROP_CONFIG)) as f:
+            p_d = yaml.safe_load(f)
+        model_d, tasks_d = build_model(p_d, device=dev, seed=0)
+        names_d = [tk.name for tk in tasks_d]
+        hw = tuple(p_d["backbone_kwargs"]["img_size"])
+        batch_d = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
+                                  tasks_d, int(p_d["trBatch"]), hw)
+        loss_fns_d = build_loss_fns(p_d)
+        weights_d = p_d["loss_kwargs"]["loss_weights"]
+        init_d = {k: v.clone() for k, v in model_d.state_dict().items()}
+        losses_d = []
+        for _ in range(2):
+            model_d.load_state_dict(init_d)
+            model_d.zero_grad(set_to_none=True)
+            model_d.train()
+            pred, cv, _ = model_d(batch_d["image"], noise=torch.Generator(
+                device=dev).manual_seed(6))
+            loss = multi_task_loss(pred, batch_d, names_d, loss_fns_d,
+                                   weights_d)["total"] + 0.01 * cv
+            loss.backward()
+            losses_d.append(loss.detach())
+        same_d = torch.equal(*losses_d)
+        check(same_d and bool(torch.isfinite(losses_d[0])),
+              f"recipe dropout step: losses {[v.item() for v in losses_d]} "
+              f"from one seed")
+        per_step_d = {"flash_attention_fwd": 12 * len(names_d) * 2,
+                      "flash_attention_bwd": 12 * len(names_d)}
+        readings_d, paths["recipe_dropout_train"] = timed_steps(
+            model_d, names_d, None, batch_d, dev, per_step_d,
+            "recipe dropout step",
+            make_step=lambda m, n, lf, lw, o, s: make_train_step(
+                m, n, loss_fns_d, weights_d, o, s))
+        _build.reset_launches()            # the dropout eval path starts
+        make_eval_step(model_d, names_d)(batch_d)
+        torch.cuda.synchronize()
+        paths["recipe_dropout_eval"] = dict(_build.launches)   # ... ends
+        eval_d = check_launches(
+            paths["recipe_dropout_eval"], len(names_d),
+            {"flash_attention_fwd": 12, "expert_ffn_fwd": 12},
+            "recipe dropout model, eval per task pass")
+        del model_d, init_d, pred, loss
+        torch.cuda.empty_cache()
+    except BaseException:
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                print(f.read()[-6000:], file=sys.stderr)
+        raise
+    finally:
+        cli_mod.load_pretrained_backbone = load
+    phase_s = time.perf_counter() - t_phase
+    check(phase_s < RECIPE_PHASE_LIMIT_S,
+          f"recipe phase took {phase_s:.1f} s (limit {RECIPE_PHASE_LIMIT_S})")
+    emit({"phase": "recipe", "steps": RECIPE_STEPS,
+          "run_a": {"config": CLI_CONFIG, "launches_per_run": launches_a,
+                    "experts": E, "top_k": K, "expert_hidden": hidden,
+                    "groups": G,
+                    "banks_bitwise_upcycle": banks_ok,
+                    "pos_embed_kept_init": loaded["pos_embed_kept"],
+                    "left_at_init": loaded["missing"],
+                    "step_remat": memory_a["remat"],
+                    "step_no_remat": memory_a["no_remat"],
+                    "remat_vs_none": remat_a},
+          "round_trip": {"ranks": 2, "state_dict_bitwise": sd_same,
+                         "eval_forward_bitwise": eval_same},
+          "run_b": {"config": DEIT_CONFIG, "launches_per_step": launches_b,
+                    "tam_level0_losses": {k: v.item()
+                                          for k, v in tam_losses.items()},
+                    "step": readings_b,
+                    "remat_vs_none": remat_b},
+          "dropout": {"config": DROP_CONFIG, "image_hw": hw,
+                      "batch": int(p_d["trBatch"]),
+                      "loss_bitwise_same_seed": same_d,
+                      "eval_launches_per_task_pass": eval_d,
+                      "step": readings_d},
+          "phase_s": phase_s})
+    return paths
 
 
 def main() -> int:
@@ -2129,21 +2516,29 @@ def main() -> int:
         torch.cuda.empty_cache()
     paths["dense_serving"], paths["dense_train"] = dense_phase(dev)
     torch.cuda.empty_cache()
-    paths["cli"], paths["cli_synthetic_step"] = cli_phase(dev)
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        paths["cli"], paths["cli_synthetic_step"] = cli_phase(dev, root)
+        torch.cuda.empty_cache()
+        paths.update(recipe_phase(dev, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     kernels = []
     # kernel, its TPU kernel, its phase's cases, its paths (the first is
     # the one whose count is "launches")
     train_paths = ("train", "ln_mlp_train", "one_by_one", "accumulation",
-                   "noisy_gate_train", "dense_train", "cli")
+                   "noisy_gate_train", "dense_train", "cli", "recipe_moe",
+                   "recipe_dense_tam")
     fwd_paths = train_paths[:1] + ("serving", "int8_serving",
                                    "ln_mlp_serving") + train_paths[1:] + (
-        "eval_nodrop", "dense_serving")
+        "eval_nodrop", "dense_serving", "recipe_dropout_eval")
+    # the dropout step's training runs K1 and K2 only (the plain FFNs)
     for kname, line, cases, on in (
             ("flash_attention_fwd", "flash_attention.py:103", attn,
-             fwd_paths),
+             fwd_paths + ("recipe_dropout_train",)),
             ("flash_attention_bwd", "flash_attention.py:125", attn_bwd,
-             train_paths),
+             train_paths + ("recipe_dropout_train",)),
             ("expert_ffn_fwd", "expert_ffn.py:145", ffn, fwd_paths),
             ("expert_ffn_bwd", "expert_ffn.py:203", ffn_bwd, train_paths),
             ("ln_mlp_fwd", "ln_mlp.py:129", ln_fwd,

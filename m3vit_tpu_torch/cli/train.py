@@ -18,9 +18,14 @@ the weights, the optimizer's state and the train step's call counter (the
 lr schedule's step).  A run stopped by --stop_after_steps or SIGTERM and
 then --resume'd ends where the uninterrupted run ends.
 
-Flags of features not ported yet raise NotImplementedError naming their
-ROADMAP.md item.  The config's ``use_checkpointing`` key is read and
-ignored (every config carries it); its flag raises.
+A run can start from a DeiT checkpoint (--pretrained: its dense MLPs
+upcycled into the MoE blocks' experts, the position embedding resized or,
+by default, left at its initial values) or from a reference multi-task
+checkpoint, one file or a rank-sharded directory (--ref_ckpt); each
+reports the tensors it left at their initial values.  use_checkpointing
+(the config key or the flag) rematerialises the backbone's blocks.  Flags
+of features not ported yet raise NotImplementedError naming their
+ROADMAP.md item.
 
 Example (a fabricated tree: scripts/fabricate_dataset.py):
   python -m m3vit_tpu_torch.cli.train --config_env env.yml \\
@@ -52,6 +57,7 @@ from m3vit_tpu_torch.evaluation.orchestrate import (
 )
 from m3vit_tpu_torch.losses.schemes import build_loss_fns
 from m3vit_tpu_torch.models.factory import build_model
+from m3vit_tpu_torch.models.vit_moe import VisionTransformerMoE
 from m3vit_tpu_torch.moe.dispatch import parse_capacity_factor
 from m3vit_tpu_torch.train.optim import build_optimizer
 from m3vit_tpu_torch.train.step import (
@@ -66,11 +72,14 @@ from m3vit_tpu_torch.utils.checkpoint import (
 )
 from m3vit_tpu_torch.utils.device import resolve_device
 from m3vit_tpu_torch.utils.logging import MetricLogger, setup_stdout_tee
+from m3vit_tpu_torch.utils.torch_interop import (
+    deit_to_backbone_params,
+    load_into_model,
+    load_reference_checkpoint,
+    load_torch_state_dict,
+    validate_reference_moe_checkpoint,
+)
 
-_ITEM2 = ("rematerialisation: the port keeps every activation, ROADMAP.md "
-          "queue 1 item 2's remainder")
-_ITEM4 = ("the torch_interop functions, ROADMAP.md queue 1 item 4's "
-          "remainder")
 _ITEM6 = "expert and data parallelism, ROADMAP.md queue 1 item 6"
 _ITEM7 = ("the token variant, task-conditioned models and research knobs, "
           "ROADMAP.md queue 1 item 7")
@@ -80,12 +89,6 @@ _ITEM11 = "the tracing tools, ROADMAP.md queue 1 item 11"
 #: flags of the JAX CLI whose feature the port lacks: (flag, takes a
 #: value, why); any use raises NotImplementedError
 UNPORTED = (
-    ("--use_checkpointing", False, _ITEM2),
-    ("--pretrained", True, _ITEM4), ("--ref_ckpt", True, _ITEM4),
-    ("--backbone_random_init", False, _ITEM4),
-    ("--pos_emb_from_pretrained", False, _ITEM4),
-    ("--use_weight_scaling", False, _ITEM4),
-    ("--use_virtual_group_initialization", False, _ITEM4),
     ("--n_data", True, _ITEM6), ("--n_expert", True, _ITEM6),
     ("--multihost", False, _ITEM6), ("--moe_data_distributed", False, _ITEM6),
     ("--a2a_chunks", True, _ITEM6), ("--n_seq", True, _ITEM10),
@@ -102,7 +105,6 @@ UNPORTED = (
     ("--warmup_epochs", True, _ITEM7), ("--gate_input_ahead", False, _ITEM7),
     ("--share_gamma", True, _ITEM7), ("--bootstrap_share_gamma", True, _ITEM7),
     ("--bootstrap_first_moe", True, _ITEM7),
-    *((f"--tam_level{i}", True, _ITEM7) for i in range(3)),
     ("--forward_hook", False, _ITEM11), ("--flops", False, _ITEM11),
     ("--time", False, _ITEM11), ("--profile_dir", True, _ITEM11),
     ("--platform", True, "a JAX option; the port takes --device"),
@@ -137,6 +139,37 @@ def parse_args(argv=None):
                          "added up, one optimizer step per batch (reference "
                          "train_utils.py:370-421); the joint step's "
                          "gradients at ~1/T of its peak memory")
+    ap.add_argument("--use_checkpointing", action="store_true", default=None,
+                    help="rematerialise the backbone's blocks in the "
+                         "backward (over the YAML's use_checkpointing)")
+    # DeiT and reference checkpoints (reference train_fastmoe.py:109-121,
+    # :180, :525-556)
+    ap.add_argument("--pretrained", default=None,
+                    help="DeiT .pth to start the backbone from (dense MLPs "
+                         "upcycled into the MoE blocks' experts); a "
+                         ".msgpack export is not ported")
+    ap.add_argument("--backbone_random_init", action="store_true",
+                    help="keep the backbone's initial values even when "
+                         "--pretrained is given (reference 'scratch' mode)")
+    ap.add_argument("--pos_emb_from_pretrained", action="store_true",
+                    help="load (and resize) pos_embed from --pretrained; "
+                         "by default it keeps its initial values "
+                         "(reference common_config.py:36)")
+    ap.add_argument("--use_weight_scaling", action="store_true",
+                    help="sqrt(E*G^2/K) scaling of split-upcycled experts")
+    ap.add_argument("--use_virtual_group_initialization",
+                    action="store_true",
+                    help="accepted for the reference CLI's sake: the split "
+                         "upcycling engages whenever the expert hidden is "
+                         "below the dense MLP hidden")
+    ap.add_argument("--ref_ckpt", default=None,
+                    help="reference multi-task checkpoint to start from: a "
+                         ".pth, or a directory of rank-sharded "
+                         "{rank}.pth files")
+    # TAM levels (reference train_fastmoe.py:158-163)
+    for i in range(3):
+        ap.add_argument(f"--tam_level{i}", type=lambda v: v.lower() not in
+                        ("0", "false", "no"), default=None)
     ap.add_argument("--weight_decay", type=float, default=None,
                     help="override optimizer_kwargs.weight_decay")
     ap.add_argument("--opt", default=None,
@@ -272,7 +305,7 @@ def _config(args):
     if args.allow_eval_drops:
         overrides["allow_eval_drops"] = True
     # three-state flags: the YAML value wins unless the flag is given
-    for k in ("multi_gate", "use_cv_loss"):
+    for k in ("multi_gate", "use_cv_loss", "use_checkpointing"):
         if getattr(args, k) is not None:
             overrides[k] = getattr(args, k)
     if args.use_pallas_ln_mlp and args.no_pallas_ln_mlp:
@@ -301,7 +334,67 @@ def _config(args):
         p["optimizer_kwargs"]["weight_decay"] = args.weight_decay
     if args.opt is not None:
         p["optimizer"] = args.opt
+    levels = {f"tam_level{i}": getattr(args, f"tam_level{i}")
+              for i in range(3) if getattr(args, f"tam_level{i}") is not None}
+    if levels:
+        p["model_kwargs"] = {**(p.get("model_kwargs") or {}), **levels}
     return p
+
+
+def _report(what: str, missing) -> None:
+    if missing:
+        print(f"[{what}] kept initial values for {len(missing)} tensors "
+              f"(e.g. {missing[:4]})")
+
+
+def load_pretrained_backbone(model: torch.nn.Module, path: str, p: Dict,
+                             pos_emb_from_pretrained: bool = False,
+                             use_weight_scaling: bool = False):
+    """Load a DeiT ``.pth`` into the model's backbone, in place
+    (m3vit_tpu/cli/train.py:880-935): the position embedding resized to the
+    patch grid (dropped unless pos_emb_from_pretrained), and on the MoE
+    backbone the odd blocks' dense MLPs upcycled into expert banks of the
+    model's expert hidden size.  Returns the backbone parameters it left at
+    their initial values (the gates among them)."""
+    if path.endswith(".msgpack"):
+        raise NotImplementedError(
+            f"{path}: the JAX package's own backbone export is not ported "
+            "to m3vit_tpu_torch (pretraining, ROADMAP.md queue 1 item 9)")
+    kw = p.get("backbone_kwargs") or {}
+    bb = model.backbone
+    patch = int(kw.get("patch_size", 16))
+    img = kw.get("img_size", [512, 512])
+    img = (img, img) if isinstance(img, int) else img
+    moe = isinstance(bb, VisionTransformerMoE)
+    loaded = deit_to_backbone_params(
+        load_torch_state_dict(path), depth=len(bb.blocks),
+        num_experts=bb.blocks[1].mlp.num_experts if moe else None,
+        expert_hidden=(bb.blocks[1].mlp.experts.htoh4.weight.shape[1]
+                       if moe else None),
+        top_k=bb.blocks[1].mlp.top_k if moe else 4,
+        target_grid=(int(img[0]) // patch, int(img[1]) // patch),
+        use_weight_scaling=use_weight_scaling)
+    if not pos_emb_from_pretrained:
+        loaded.pop("pos_embed", None)
+    missing = load_into_model(model, loaded, prefix="backbone.")
+    _report("pretrained", missing)
+    return missing
+
+
+def import_reference_checkpoint(model: torch.nn.Module, path: str, p: Dict):
+    """Load a reference multi-task checkpoint (a ``.pth`` or a rank-sharded
+    directory) into the model, in place, after refusing rank-local expert
+    banks (m3vit_tpu/cli/train.py:544-575).  Returns (the checkpoint, the
+    parameters it left at their initial values)."""
+    ckpt, sd = load_reference_checkpoint(path)
+    validate_reference_moe_checkpoint(ckpt, sd, int(p.get("moe_experts", 16)),
+                                      path)
+    missing = load_into_model(model, sd)
+    epoch = ckpt.get("epoch") if isinstance(ckpt, dict) else None
+    print(f"imported reference checkpoint {path} (epoch={epoch}, "
+          f"missing={len(missing)})")
+    _report("ref_ckpt", missing)
+    return ckpt, missing
 
 
 def run(args) -> Dict:
@@ -310,7 +403,9 @@ def run(args) -> Dict:
     else {"best": the best results}; each with "steps_run" (train steps
     this call ran), "step_times" ([(global step, perf_counter when the
     step's call returned)], no device sync) and "state" ({"model",
-    "optimizer", "train_step"}, as the run left them)."""
+    "optimizer", "train_step"}, as the run left them); with --pretrained
+    or --ref_ckpt also "pretrained_missing" / "ref_ckpt_missing", the
+    parameters the checkpoint left at their initial values."""
     _refuse_unported(args)
     device = resolve_device(args.device)
     p = _config(args)
@@ -387,6 +482,21 @@ def _run(args, p, device, logger, loaders, preempted) -> Dict:
     n_params = sum(x.numel() for x in model.parameters())
     print(f"parameters: {n_params/1e6:.2f}M, steps/epoch: {steps_per_epoch}")
 
+    out: Dict = {"steps_run": 0, "step_times": [],
+                 "state": {"model": model, "optimizer": optimizer}}
+    if args.pretrained and args.backbone_random_init:
+        # reference 'scratch' mode (train_fastmoe.py:192-197)
+        print(f"backbone_random_init: ignoring {args.pretrained}")
+    elif args.pretrained:
+        out["pretrained_missing"] = load_pretrained_backbone(
+            model, args.pretrained, p,
+            pos_emb_from_pretrained=args.pos_emb_from_pretrained,
+            use_weight_scaling=args.use_weight_scaling)
+        print(f"loaded pretrained backbone from {args.pretrained}")
+    if args.ref_ckpt:
+        out["ref_ckpt_missing"] = import_reference_checkpoint(
+            model, args.ref_ckpt, p)[1]
+
     cv_w = float(args.moe_noisy_gate_loss_weight) if p.get("use_cv_loss") \
         else 0.0
     if args.one_by_one:
@@ -415,8 +525,9 @@ def _run(args, p, device, logger, loaders, preempted) -> Dict:
             train_step.step = meta["train_step_calls"]
             start_epoch = int(meta.get("epoch", -1)) + 1
             print(f"resumed from epoch {start_epoch - 1}")
-        elif args.eval:
-            raise FileNotFoundError(f"--eval needs a checkpoint in {ckpt_dir}")
+        elif args.eval and not (args.ref_ckpt or args.pretrained):
+            raise FileNotFoundError(f"--eval needs a checkpoint in {ckpt_dir} "
+                                    "(or --ref_ckpt / --pretrained)")
     if args.resume and not args.eval and args.ckp is None:
         # step-granularity resume: the run's own mid-epoch checkpoint wins
         # when it is newer than the last epoch checkpoint (an explicit --ckp
@@ -436,9 +547,7 @@ def _run(args, p, device, logger, loaders, preempted) -> Dict:
                 start_epoch, skip_iters = s_epoch, s_next
                 print(f"resumed mid-epoch: epoch {s_epoch} iter {s_next}")
 
-    out: Dict = {"steps_run": 0, "step_times": [],
-                 "state": {"model": model, "optimizer": optimizer,
-                           "train_step": train_step}}
+    out["state"]["train_step"] = train_step
 
     def run_eval(epoch: int) -> Dict:
         batches = to_device(val_loader.epoch(epoch), device, keys=("image",))

@@ -1,7 +1,7 @@
 """Synthetic multi-task batches with the reference's label encodings
 (counterpart of m3vit_tpu/data/synthetic.py:16-53), NCHW, drawn from a
 torch.Generator: ImageNet-normalised-like images, ignore label 255,
-unit-norm normals, binary edge/sal maps."""
+unit-norm normals, binary edge/sal maps, depth in [0, 10)."""
 
 from __future__ import annotations
 
@@ -31,6 +31,9 @@ def synthetic_batch(gen: torch.Generator, tasks, batch_size: int,
             v = torch.randn((batch_size, 3, H, W), **kw)
             lab = v / (torch.linalg.vector_norm(v, dim=1, keepdim=True)
                        + 1e-12)
+            lab = torch.where(ignore, 255.0, lab)
+        elif t.loss_kind == "depth_l1":
+            lab = torch.rand((batch_size, 1, H, W), **kw) * 10.0
             lab = torch.where(ignore, 255.0, lab)
         else:
             raise NotImplementedError(t.loss_kind)

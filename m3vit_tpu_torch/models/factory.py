@@ -107,6 +107,7 @@ def build_backbone(p: Dict, num_tasks: int):
         distilled=bool(kw.get("distilled", False)),
         dtype=_DTYPES[p.get("compute_dtype", "bfloat16")],
         ln_mlp=bool(p.get("use_pallas_ln_mlp", False)),
+        use_checkpointing=bool(p.get("use_checkpointing", False)),
     )
     if name == "VisionTransformer_moe":
         if int(p.get("gate_task_specific_dim", -1)) > 0:
@@ -146,7 +147,8 @@ def build_backbone(p: Dict, num_tasks: int):
 def build_head(p: Dict, num_output: int) -> VisionTransformerUpHead:
     """The PUP head of config `p` for a task with `num_output` channels
     (factory.py:146-167, its VisionTransformerUpHead branch: four 3x3
-    convs and four upsamplings)."""
+    convs and four upsamplings), returning TAM's features in training when
+    model_kwargs.tam is set."""
     name = p.get("head", "VisionTransformerUpHead")
     if name != "VisionTransformerUpHead":
         raise NotImplementedError(
@@ -161,13 +163,12 @@ def build_head(p: Dict, num_output: int) -> VisionTransformerUpHead:
         raise NotImplementedError(
             f"PUP head (num_conv, num_upsample_layer, conv3x3_conv1x1) = "
             f"{shape} is not ported; m3vit_tpu_torch has (4, 4, True)")
-    if (p.get("model_kwargs") or {}).get("tam", False):
-        raise NotImplementedError(
-            "TAM is not ported to m3vit_tpu_torch (ROADMAP queue 1 item 7)")
     return VisionTransformerUpHead(
         img_size=_img_size(kw), patch_size=int(kw.get("patch_size", 16)),
         embed_dim=int(kw.get("embed_dim", 384)), num_classes=num_output,
-        dtype=_DTYPES[p.get("compute_dtype", "bfloat16")])
+        dtype=_DTYPES[p.get("compute_dtype", "bfloat16")],
+        return_tam_features=bool((p.get("model_kwargs") or {}).get(
+            "tam", False)))
 
 
 def build_model(p: Dict, device=None, seed: int = 0
@@ -176,17 +177,20 @@ def build_model(p: Dict, device=None, seed: int = 0
     multi-task model (multi-gate or one shared router) for setup
     multi_task; for setup single_task, the first task's SingleTaskModel on
     the dense ViT, or a MultiTaskModel of the config's tasks on the MoE
-    ViT, as the JAX package builds them.  Weights are f32, drawn from
-    `seed`; the model is returned in eval mode on the card unless
-    device="cpu" (raises when CUDA is absent and no device was given).
-    ``use_checkpointing`` is not read: the port keeps every activation
-    (rematerialisation changes memory, not results)."""
+    ViT, as the JAX package builds them; model_kwargs.tam adds TAM at the
+    levels tam_level{0,1,2} (each on unless set false; factory.py:341-352).
+    use_checkpointing rematerialises the backbone's blocks in training.
+    Weights are f32, drawn from `seed`; the model is returned in eval mode
+    on the card unless device="cpu" (raises when CUDA is absent and no
+    device was given)."""
     dev = resolve_device(device)
     model_name = p.get("model", "baseline")
     if model_name != "baseline":
+        item, what = (7, "the token variant") if model_name.startswith(
+            "token") else (8, "the MTL methods and mixture_baseline")
         raise NotImplementedError(
-            f"model {model_name!r} is not ported to m3vit_tpu_torch (the MTL "
-            f"methods and mixture_baseline come with ROADMAP queue 1 item 8)")
+            f"model {model_name!r} is not ported to m3vit_tpu_torch ({what}: "
+            f"ROADMAP queue 1 item {item})")
     tasks = parse_task_dictionary(p["train_db_name"], p["task_dictionary"])[0]
     names = [t.name for t in tasks]
     backbone = build_backbone(p, len(tasks))
@@ -196,9 +200,14 @@ def build_model(p: Dict, device=None, seed: int = 0
                                                   VisionTransformer):
         model = SingleTaskModel(backbone, decoders[names[0]], names[0])
     elif p["setup"] in ("single_task", "multi_task"):
+        mk = p.get("model_kwargs") or {}
         model = MultiTaskModel(
             backbone, decoders, names, multi_gate=multi_gate,
             shared_prefix=bool(p.get("shared_prefix", False)),
+            tam=bool(mk.get("tam", False)) and p["setup"] == "multi_task",
+            tam_levels=[bool(mk.get(f"tam_level{i}", True))
+                        for i in range(3)],
+            num_outputs={t.name: t.num_output for t in tasks},
             stacked_tasks=p.get("stacked_tasks", False),
             scan_tasks=p.get("scan_tasks", False))
     else:

@@ -34,12 +34,15 @@ from m3vit_tpu_torch.models.vit import (
     DenseBlock,
     DenseParams,
     PatchEmbed,
+    drop_path_rates,
     embed_tokens,
     fill_normal,
     fill_uniform,
     layer_norm,
     reject_left_out,
+    run_block,
 )
+from m3vit_tpu_torch.ops.dropout import dropout, drop_path
 from m3vit_tpu_torch.moe.dispatch import (
     MoEFfnParams,
     MoEFfnParamsQ,
@@ -150,14 +153,17 @@ class Experts(nn.Module):
 class MoEMlp(nn.Module):
     """gate -> dispatch -> experts -> combine (vit_moe.py:169-464).
     gate_type "noisy_vmoe" is the VMoE gate with noise std
-    vmoe_noisy_std / E, "noisy" the learned-noise gate."""
+    vmoe_noisy_std / E, "noisy" the learned-noise gate.  In training with
+    drop > 0 the experts' hidden activation is dropped, which runs the
+    plain expert FFN instead of the kernels, as the JAX package does
+    (vit_moe.py:384-408; dispatch.py:305-337)."""
 
     def __init__(self, dim: int, num_experts: int, d_hidden: int,
                  top_k: int = 2, multi_gate: bool = False, num_tasks: int = 0,
                  vmoe_noisy_std: float = 1.0, capacity_factor: float = 2.0,
                  eval_capacity_factor: float = 4.0,
                  expert_weights_int8: bool = False,
-                 gate_type: str = "noisy_vmoe"):
+                 gate_type: str = "noisy_vmoe", drop: float = 0.0):
         super().__init__()
         if gate_type not in GATE_TYPES:
             raise ValueError(f"gate_type {gate_type!r} is not one of "
@@ -171,6 +177,7 @@ class MoEMlp(nn.Module):
         self.vmoe_noisy_std = vmoe_noisy_std
         self.capacity_factor = capacity_factor
         self.eval_capacity_factor = eval_capacity_factor
+        self.drop = drop
         learned = gate_type == "noisy"
         if multi_gate:
             if num_tasks <= 0:
@@ -215,8 +222,10 @@ class MoEMlp(nn.Module):
         top_gates = gate.top_k_gates.reshape(B, N, K)
         cf = self.capacity_factor if self.training else \
             self.eval_capacity_factor
+        drop = self.drop if self.training else 0.0
         out = moe_ffn(x, top_idx, top_gates, self.experts.ffn_params(),
-                      capacity_factor=cf, use_kernels=self.use_kernels)
+                      capacity_factor=cf, use_kernels=self.use_kernels,
+                      dropout_rate=drop, rng=noise)
 
         # exact dropped-slot accounting against the dispatch capacity
         # (vit_moe.py:419-439); ids >= E are intentional non-compute
@@ -261,7 +270,10 @@ class MoEMlp(nn.Module):
 class MoEBlock(nn.Module):
     """Transformer block with an MoE FFN (vit_moe.py:467-636).  `stage`
     "attn" runs only the attention sublayer, "moe" only the MoE sublayer
-    (the shared_prefix split, vit_moe.py:521-526)."""
+    (the shared_prefix split, vit_moe.py:521-526).  In training: dropout
+    of rate drop in the attention and the experts and on the MoE output,
+    and drop-path of rate drop_path_rate on both residual branches
+    (vit_moe.py:526-577)."""
 
     def __init__(self, dim: int, num_heads: int, moe_hidden_dim: int,
                  moe_experts: int = 16, moe_top_k: int = 4,
@@ -270,34 +282,48 @@ class MoEBlock(nn.Module):
                  vmoe_noisy_std: float = 1.0, capacity_factor: float = 2.0,
                  eval_capacity_factor: float = 4.0, dtype=torch.float32,
                  expert_weights_int8: bool = False,
-                 gate_type: str = "noisy_vmoe"):
+                 gate_type: str = "noisy_vmoe", drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path_rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, dtype)
+        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, dtype,
+                              attn_drop, drop)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = MoEMlp(dim, moe_experts, moe_hidden_dim, moe_top_k,
                           multi_gate, num_tasks, vmoe_noisy_std,
                           capacity_factor, eval_capacity_factor,
-                          expert_weights_int8, gate_type)
+                          expert_weights_int8, gate_type, drop)
+
+    def _drop_path(self, h, rng):
+        return drop_path(h, self.drop_path_rate, rng) if self.training \
+            else h
 
     def forward(self, x: torch.Tensor, task_id: Optional[int],
                 noise: Optional[torch.Generator] = None, stage: str = "full"):
         """Returns (tokens, cv loss, stats); cv is 0 outside training."""
         if stage != "moe":
-            x = x + self.attn(layer_norm(self.norm1, x).to(self.dtype))
+            x = x + self._drop_path(self.attn(
+                layer_norm(self.norm1, x).to(self.dtype), noise), noise)
             if stage == "attn":
                 return x, torch.zeros((), device=x.device), {}
         h = layer_norm(self.norm2, x).to(self.dtype)
         moe_out, gate, stats = self.mlp(h, task_id, noise)
-        return x + moe_out, self.mlp.aux_loss(gate), stats
+        if self.training:
+            moe_out = dropout(moe_out, self.mlp.drop, noise)
+        return x + self._drop_path(moe_out, noise), self.mlp.aux_loss(gate), \
+            stats
 
 
 class VisionTransformerMoE(nn.Module):
     """MoE ViT backbone: even blocks dense, odd blocks MoE
     (vit_moe.py:734-1105).  Takes images [B, 3, H, W]; returns
     (tokens [B, 1+N, C], cv loss summed over blocks, stats summed over
-    blocks)."""
+    blocks).  drop_rate, attn_drop_rate and drop_path_rate act in
+    training, their masks drawn from the forward's generator;
+    use_checkpointing rematerialises each block in training
+    (vit_moe.py:904-908)."""
 
     def __init__(self, img_size=(512, 512), patch_size: int = 16,
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
@@ -308,10 +334,16 @@ class VisionTransformerMoE(nn.Module):
                  vmoe_noisy_std: float = 1.0, capacity_factor: float = 2.0,
                  eval_capacity_factor: float = 4.0, dtype=torch.float32,
                  expert_weights_int8: bool = False, ln_mlp: bool = False,
-                 moe_gate_type: str = "noisy_vmoe", **left_out):
+                 moe_gate_type: str = "noisy_vmoe", drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
+                 use_checkpointing: bool = False, **left_out):
         super().__init__()
         reject_left_out(left_out)
         self.dtype = dtype
+        self.drop_rate = drop_rate
+        self.attn_drop_rate = attn_drop_rate
+        self.drop_path_rate = drop_path_rate
+        self.use_checkpointing = use_checkpointing
         self.expert_weights_int8 = expert_weights_int8
         num_patches = (img_size[0] // patch_size) * (img_size[1] // patch_size)
         self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype)
@@ -322,12 +354,14 @@ class VisionTransformerMoE(nn.Module):
                                       else mlp_ratio))
         self.blocks = nn.ModuleList(
             DenseBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale,
-                       dtype, ln_mlp) if i % 2 == 0 else
+                       dtype, ln_mlp, drop_rate, attn_drop_rate, dpr)
+            if i % 2 == 0 else
             MoEBlock(embed_dim, num_heads, moe_hidden, moe_experts, moe_top_k,
                      multi_gate, num_tasks, qkv_bias, qk_scale,
                      vmoe_noisy_std, capacity_factor, eval_capacity_factor,
-                     dtype, expert_weights_int8, moe_gate_type)
-            for i in range(depth))
+                     dtype, expert_weights_int8, moe_gate_type, drop_rate,
+                     attn_drop_rate, dpr)
+            for i, dpr in enumerate(drop_path_rates(drop_path_rate, depth)))
 
     def init_weights(self, gen: torch.Generator) -> None:
         nn.init.zeros_(self.cls_token)
@@ -349,11 +383,12 @@ class VisionTransformerMoE(nn.Module):
             blk = self.blocks[i]
             if isinstance(blk, MoEBlock):
                 stage = start_stage if i == start else "full"
-                tokens, cv, st = blk(tokens, task_id, noise, stage)
+                tokens, cv, st = run_block(self, blk, noise, tokens, task_id,
+                                           noise, stage)
                 total_cv = total_cv + cv
                 stats = add_stats(stats, st)
             else:
-                tokens = blk(tokens)
+                tokens = run_block(self, blk, noise, tokens, noise)
         return tokens, total_cv, stats
 
     def forward(self, x: torch.Tensor, task_id=None,
@@ -363,18 +398,28 @@ class VisionTransformerMoE(nn.Module):
         sequence of task ids; then the prefix (patch embed, the leading
         dense block and the first MoE block's attention) runs once and the
         rest once per task, and the tokens come back task-major
-        [T*B, 1+N, C] (vit_moe.py:1057-1101)."""
-        tokens = embed_tokens(self, x)
+        [T*B, 1+N, C] (vit_moe.py:1057-1101).  Training with dropout would
+        share the prefix's masks across tasks, so it raises; with
+        drop-path the first MoE block's attention runs per task."""
+        if shared_prefix and self.training and (self.drop_rate > 0
+                                                or self.attn_drop_rate > 0):
+            raise ValueError("shared_prefix would share the prefix's "
+                             "dropout masks across tasks; train with "
+                             "dropout without it (vit_moe.py:860-864)")
+        tokens = embed_tokens(self, x, noise)
         if not shared_prefix:
             return self._run_blocks(tokens, task_id, 0, "full", noise)
         task_ids: Sequence[int] = task_id
         n_prefix = 0
         while n_prefix < len(self.blocks) and n_prefix % 2 == 0:
-            tokens = self.blocks[n_prefix](tokens)
+            tokens = run_block(self, self.blocks[n_prefix], noise, tokens,
+                               noise)
             n_prefix += 1
         start_stage = "full"
-        if n_prefix < len(self.blocks):
-            tokens, _, _ = self.blocks[n_prefix](tokens, None, None, "attn")
+        if n_prefix < len(self.blocks) and not (self.training
+                                                and self.drop_path_rate > 0):
+            tokens, _, _ = run_block(self, self.blocks[n_prefix], noise,
+                                     tokens, None, noise, "attn")
             start_stage = "moe"
         feats, total_cv, stats = [], torch.zeros((), device=x.device), {}
         for tid in task_ids:

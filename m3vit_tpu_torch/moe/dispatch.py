@@ -5,7 +5,9 @@ Counterpart of m3vit_tpu/moe/dispatch.py: a sort-derived dispatch plan
 sorted order), dispatch and combine as row gathers whose backwards are row
 gathers too (autograd Functions, as the JAX custom_vjps), and the
 per-expert FFN through the fused kernels (ops/expert_ffn.py): K3/K4 on
-float banks, K7 on int8 banks (``MoEFfnParamsQ``, inference only).  Slot
+float banks, K7 on int8 banks (``MoEFfnParamsQ``, inference only); with
+dropout on the hidden activation (training), the plain products instead, as
+the JAX package leaves its kernel there.  Slot
 assignment is bitwise the JAX package's: over-capacity slots drop in slot
 order t*K+k, and ids >= E count as dropped before they take capacity.
 Expert parallelism (dispatch.py:543) is not ported.
@@ -212,24 +214,32 @@ def combine_gather(y: torch.Tensor, scores: torch.Tensor, dst: torch.Tensor,
 
 def expert_ffn_dense(h: torch.Tensor,
                      params: Union[MoEFfnParams, MoEFfnParamsQ],
-                     compute_dtype=torch.bfloat16) -> torch.Tensor:
+                     compute_dtype=torch.bfloat16, dropout_rate: float = 0.0,
+                     rng: Optional[torch.Generator] = None) -> torch.Tensor:
     """Plain reference of the batched per-expert FFN (dispatch.py:300-342);
-    an int8 pack is dequantized first (dispatch.py:322)."""
+    an int8 pack is dequantized first (dispatch.py:322).  With
+    dropout_rate > 0 the hidden activation, rounded to the compute dtype,
+    is dropped with masks drawn from `rng` (dispatch.py:331-333)."""
     cd = compute_dtype
     if isinstance(params, MoEFfnParamsQ):
         params = dequantize_ffn_params(params, cd)
     return fused_expert_ffn_plain(h.to(cd), params.w1.to(cd), params.b1,
-                                  params.w2.to(cd), params.b2)
+                                  params.w2.to(cd), params.b2, dropout_rate,
+                                  rng)
 
 
 def moe_ffn_local(x: torch.Tensor, top_k_indices: torch.Tensor,
                   top_k_gates: torch.Tensor,
                   params: Union[MoEFfnParams, MoEFfnParamsQ], *,
-                  capacity: int, use_kernels: bool = True) -> torch.Tensor:
+                  capacity: int, use_kernels: bool = True,
+                  dropout_rate: float = 0.0,
+                  rng: Optional[torch.Generator] = None) -> torch.Tensor:
     """Single-shard MoE FFN: gather-dispatch -> per-expert FFN -> combine
     (dispatch.py:367-412).  The FFN runs in x's dtype; with float banks it
     is differentiable in x, top_k_gates and the expert weights, an int8
-    pack runs the inference-only quantized FFN."""
+    pack runs the inference-only quantized FFN.  dropout_rate > 0 (pass it
+    in training only) runs the plain FFN with dropout on its hidden
+    activation (dispatch.py:394-396)."""
     T, d = x.shape
     K = top_k_indices.shape[-1]
     E = params.w1.shape[0]
@@ -238,7 +248,9 @@ def moe_ffn_local(x: torch.Tensor, top_k_indices: torch.Tensor,
                               scores.reshape(-1))
     src_tok = torch.div(plan.src_flat, K, rounding_mode="floor")
     h = dispatch_gather(x, src_tok, plan.dst).reshape(E, capacity, d)
-    if isinstance(params, MoEFfnParamsQ):
+    if dropout_rate > 0.0:
+        y = expert_ffn_dense(h, params, x.dtype, dropout_rate, rng)
+    elif isinstance(params, MoEFfnParamsQ):
         y = quantized_expert_ffn(h, params.w1, params.s1, params.b1,
                                  params.w2, params.s2, params.b2,
                                  use_kernels=use_kernels)
@@ -254,14 +266,16 @@ def moe_ffn(x: torch.Tensor, top_k_indices: torch.Tensor,
             top_k_gates: torch.Tensor,
             params: Union[MoEFfnParams, MoEFfnParamsQ], *,
             capacity_factor: float = 2.0,
-            use_kernels: bool = True) -> torch.Tensor:
+            use_kernels: bool = True, dropout_rate: float = 0.0,
+            rng: Optional[torch.Generator] = None) -> torch.Tensor:
     """MoE FFN over [B, N, d] or [T, d] on one device (the single-device
-    branch of dispatch.py:moe_ffn, :585-604)."""
+    branch of dispatch.py:moe_ffn, :585-604); dropout as moe_ffn_local."""
     d = x.shape[-1]
     it = top_k_indices.reshape(-1, top_k_indices.shape[-1])
     T, K = it.shape
     cap = compute_capacity(T, K, params.w1.shape[0], capacity_factor)
     out = moe_ffn_local(x.reshape(-1, d), it,
                         top_k_gates.reshape(-1, K), params, capacity=cap,
-                        use_kernels=use_kernels)
+                        use_kernels=use_kernels, dropout_rate=dropout_rate,
+                        rng=rng)
     return out.reshape(x.shape)

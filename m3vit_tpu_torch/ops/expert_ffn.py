@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from m3vit_tpu_torch.ops import _build
+from m3vit_tpu_torch.ops.dropout import dropout
 
 NAME = "expert_ffn_fwd"
 BWD_NAME = "expert_ffn_bwd"
@@ -49,12 +50,16 @@ BWD_TILE_M, BWD_TILE_N, BWD_HIDDEN_TILE, BWD_KSTEP = (
                                       "FFN_BWD_HIDDEN_TILE", "FFN_BWD_KSTEP"))
 
 
-def fused_expert_ffn_plain(h, w1, b1, w2, b2) -> torch.Tensor:
+def fused_expert_ffn_plain(h, w1, b1, w2, b2, dropout_rate: float = 0.0,
+                           rng=None) -> torch.Tensor:
     """Plain PyTorch version with the kernel's numerics: both products
     accumulate in f32, bias and exact-erf GELU in f32, the hidden activation
-    rounded to h's dtype before the second product; output in h's dtype."""
+    rounded to h's dtype before the second product; output in h's dtype.
+    dropout_rate > 0 drops the rounded hidden activation with masks from
+    `rng` (training only; m3vit_tpu/moe/dispatch.py:331-333, the kernel
+    has no dropout)."""
     a = torch.bmm(h.float(), w1.float().transpose(1, 2)) + b1.float()[:, None]
-    a = F.gelu(a).to(h.dtype)
+    a = dropout(F.gelu(a).to(h.dtype), dropout_rate, rng)
     o = torch.bmm(a.float(), w2.float().transpose(1, 2)) + b2.float()[:, None]
     return o.to(h.dtype)
 

@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from m3vit_tpu_torch.ops import _build
+from m3vit_tpu_torch.ops.dropout import dropout
 
 NAME = "flash_attention_fwd"
 BWD_NAME = "flash_attention_bwd"
@@ -47,14 +48,19 @@ def _scores(q, k, scale, valid_len):
 
 
 def flash_attention_qkv_plain(qkv: torch.Tensor, num_heads: int, scale: float,
-                              valid_len: Optional[int] = None) -> torch.Tensor:
+                              valid_len: Optional[int] = None,
+                              dropout_rate: float = 0.0,
+                              rng=None) -> torch.Tensor:
     """Plain PyTorch attention with the naive path's numerics
     (m3vit_tpu/models/vit.py:114-131): scores and softmax in f32, the
     probabilities cast to qkv's dtype for p.v, f32 accumulation.  Keys at or
-    past `valid_len` are masked.  qkv [B, N, 3C] -> [B, N, C]."""
+    past `valid_len` are masked.  dropout_rate > 0 drops probabilities with
+    masks from `rng` (training's attention dropout, which the kernels do
+    not have; vit.py:128-129).  qkv [B, N, 3C] -> [B, N, C]."""
     B, N, _ = qkv.shape
     q, k, v = _split(qkv, num_heads)
-    p = torch.softmax(_scores(q, k, scale, valid_len), dim=-1).to(qkv.dtype)
+    p = dropout(torch.softmax(_scores(q, k, scale, valid_len),
+                              dim=-1).to(qkv.dtype), dropout_rate, rng)
     o = torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float())
     return o.reshape(B, N, -1).to(qkv.dtype)
 

@@ -11,7 +11,10 @@ the int8 expert banks of a quantized model (``experts_w1_q`` ->
 ``htoh4.weight_q`` transposed, kept int8; ``experts_w1_scale`` ->
 ``htoh4.weight_scale``, per out channel in either layout), the
 learned-noise gate's ``w_noise`` beside ``w_gate``, the dense ViT (its
-blocks have no MoE layer) and a SingleTaskModel's one ``decoder``.
+blocks have no MoE layer), a SingleTaskModel's one ``decoder`` and the TAM
+modules ``tam_model{lvl}`` with their BatchNorm statistics (flax
+ConvTranspose kernels [kh, kw, in, out], spatially flipped, to torch
+[in, out, kh, kw]; reference models/models.py:11-134).
 """
 
 from __future__ import annotations
@@ -110,4 +113,34 @@ def jax_variables_to_state_dict(variables: Dict, tasks: Iterable,
             put(pre + bn + ".running_var",
                 stats.get("var", np.ones_like(scale)))
             sd[pre + bn + ".num_batches_tracked"] = torch.tensor(0)
+
+    def bn_with_stats(prefix, p, stats):
+        norm(prefix, p)
+        put(prefix + ".running_mean",
+            stats.get("mean", np.zeros_like(np.asarray(p["scale"]))))
+        put(prefix + ".running_var",
+            stats.get("var", np.ones_like(np.asarray(p["scale"]))))
+        sd[prefix + ".num_batches_tracked"] = torch.tensor(0)
+
+    for name in sorted(k for k in params if k.startswith("tam_model")):
+        tp, ts = params[name], batch_stats.get(name, {})
+        stages = [(f"layers{i}", "conv") for i in range(3)] + [
+            (f"{kind}{i}", kind) for kind in ("encoder", "decoder")
+            for i in range(2)] + [
+            (f"layers3.{k[len('layers3_'):-len('_conv')]}", "conv")
+            for k in tp if k.startswith("layers3_") and k.endswith("_conv")]
+        for stage, kind in stages:
+            src = stage.replace(".", "_")
+            pre = f"{name}.{stage}."
+            if kind == "decoder":
+                k = np.asarray(tp[src + "_conv"]["kernel"])
+                put(pre + "0.weight", k[::-1, ::-1].transpose(2, 3, 0, 1))
+                put(pre + "0.bias", tp[src + "_conv"]["bias"])
+            else:
+                conv(pre + "0", tp[src + "_conv"])
+            bn_with_stats(pre + "1", tp[src + "_bn"],
+                          ts.get(src + "_bn", {}))
+        for k in tp:
+            if k.startswith("layers4_"):
+                conv(f"{name}.layers4.{k[len('layers4_'):]}.0", tp[k])
     return sd

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import sys
 import time
 from typing import Dict, Optional
@@ -172,6 +173,10 @@ def _map_train_metric(k: str, v) -> Dict:
         return {"train/cv_loss": v}
     if k == "loss_total_with_cv":
         return {"train/total_loss_with_cv": v}
+    m = re.fullmatch(r"loss_(tam_)?level(\d)_(.+)", k)
+    if m:
+        tam, lvl, task = m.groups()
+        return {f"train/{tam or ''}level{lvl}_loss_{task}": v}
     return {f"train/{k}": v}
 
 

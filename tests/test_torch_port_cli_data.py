@@ -51,13 +51,11 @@ from m3vit_tpu_torch.moe.dispatch import parse_capacity_factor
 from m3vit_tpu_torch.train.optim import build_optimizer
 from m3vit_tpu_torch.utils import checkpoint as ckpt
 from m3vit_tpu_torch.utils.convert import jax_variables_to_state_dict
+from tests.jax_fast_compile import FAST_COMPILE
 
 ROOT = Path(__file__).resolve().parent.parent
 HEADLINE = ROOT / "configs" / "pascal" / "vit_moe_small_multi_task.yml"
 N_IMAGES, HW = 4, (48, 64)
-#: XLA's CPU backend at its lowest optimisation level (as in
-#: tests/test_torch_port_step_paths.py)
-FAST_COMPILE = {"xla_backend_optimization_level": 0}
 #: dataset -> (its env root key, the fabricating function)
 DB = {"PASCALContext": ("PASCAL_MT", "fabricate_pascal"),
       "NYUD": ("NYUD_MT", "fabricate_nyud"),

@@ -69,7 +69,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_left_out_options_raise():
-    for knob in ("scan_blocks", "stacked_tasks", "drop_path_rate"):
+    for knob in ("scan_blocks", "stacked_tasks", "sem_force"):
         with pytest.raises(NotImplementedError, match=knob):
             build_flagship(device="cpu", **SMALL, **{knob: True})
     # the JAX name of the fused dense sublayer is not the port's knob
@@ -80,9 +80,14 @@ def test_left_out_options_raise():
                               drop_path_rate=0.0, **SMALL)
     assert model.shared_prefix
     # ported since the int8 / ln_mlp slice: both build; the int8 model
-    # serves only
-    model, _ = build_flagship(device="cpu", ln_mlp=True, **SMALL)
+    # serves only.  Since the recipe slice dropout, drop-path and remat
+    # build too (here beside ln_mlp, which steps aside where they act)
+    model, _ = build_flagship(device="cpu", ln_mlp=True, drop_rate=0.1,
+                              drop_path_rate=0.1, use_checkpointing=True,
+                              **SMALL)
     assert all(b.ln_mlp for b in model.backbone.blocks[::2])
+    assert model.backbone.blocks[-1].drop_path_rate == 0.1
+    assert model.backbone.use_checkpointing
     model, _ = build_flagship(device="cpu", expert_weights_int8=True, **SMALL)
     assert model.state_dict()[
         "backbone.blocks.1.mlp.experts.htoh4.weight_q"].dtype == torch.int8

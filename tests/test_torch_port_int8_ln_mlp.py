@@ -45,6 +45,7 @@ from m3vit_tpu_torch.tasks import parse_task_dictionary
 from m3vit_tpu_torch.train.optim import build_optimizer
 from m3vit_tpu_torch.train.step import make_train_step
 from m3vit_tpu_torch.utils.convert import jax_variables_to_state_dict
+from tests.jax_fast_compile import FAST_COMPILE, fast_jit as _jit
 
 t = torch.from_numpy
 OP_TOL = 2e-5     # of the largest |ref|
@@ -216,7 +217,7 @@ def test_int8_session_matches_jax_session():
             if hasattr(leaf, "top_k_indices")]
         return pred["semseg"], [gt.top_k_indices for gt in gates]
 
-    ref, jroutes = jax.jit(run)(qvars, jnp.asarray(x))
+    ref, jroutes = _jit(run)(qvars, jnp.asarray(x))
     jsess = JaxSession(jmodel, qvars, names, img_size=(IMG, IMG),
                        buckets=(2,))
     jlogits = jsess.predict(x, "semseg")
@@ -293,7 +294,7 @@ def ln_mlp_runs():
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_expert_ffn_mod, "_FORCE_INTERPRET_FOR_TESTS", True)
-        jeval = jax.tree.map(np.asarray, jax.jit(
+        jeval = jax.tree.map(np.asarray, _jit(
             lambda v, x: jmodel.apply(v, x, train=False)[0])(
                 {"params": params, "batch_stats": stats}, jbatch["image"]))
         state = TrainState.create(apply_fn=jmodel.apply, params=params,
@@ -301,6 +302,8 @@ def ln_mlp_runs():
         jstep = jax_make_train_step(
             jmodel, names, {n: jax_loss_fn(n, {"edge_w": 0.95})
                             for n in names}, WEIGHTS, donate=False)
+        jstep = jstep.lower(state, jbatch, jax.random.key(0)).compile(
+            FAST_COMPILE)
         state, jm = jstep(state, jbatch, jax.random.key(0))
     jmetrics = {k: float(v) for k, v in jm.items()}
     jstate = jax.tree.map(np.asarray, {"params": state.params,

@@ -23,6 +23,7 @@ from m3vit_tpu_torch.models import build_flagship
 from m3vit_tpu_torch.serve import InferenceSession
 from m3vit_tpu_torch.tasks import parse_task_dictionary
 from m3vit_tpu_torch.utils.convert import jax_variables_to_state_dict
+from tests.jax_fast_compile import fast_jit as _jit
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -52,7 +53,7 @@ def pair():
     jmodel, _ = jax_build_flagship(tasks=jtasks, dtype=jnp.float32,
                                    use_checkpointing=False, **ARCH)
     img = jnp.zeros((2, IMG, IMG, 3), jnp.float32)
-    variables = _np_tree(jax.jit(
+    variables = _np_tree(_jit(
         lambda r: jmodel.init({"params": r}, img, train=False))(
             jax.random.key(0)))
     rng = np.random.RandomState(0)
@@ -94,7 +95,7 @@ def jax_outputs(pair):
         multi, _, stats = jmodel.apply(v, x, train=False)
         return single, multi, stats
 
-    return x, _np_tree(jax.jit(run)(variables, x))
+    return x, _np_tree(_jit(run)(variables, x))
 
 
 def _port(model, x, **kw):

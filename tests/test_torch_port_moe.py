@@ -1,8 +1,12 @@
 """The port's gating and dispatch against the JAX package's (CPU, f32).
 
 Routing decisions and dispatch plans must be bitwise equal; outputs agree
-to 2e-5, the JAX package's f32 tolerance.
+to 2e-5, the JAX package's f32 tolerance.  Each JAX side runs as one
+jitted program at XLA's lowest CPU optimisation level (one compile, not
+one for each operation).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -14,6 +18,7 @@ from m3vit_tpu.moe import dispatch as jdisp
 from m3vit_tpu.moe import gating as jgate
 from m3vit_tpu_torch.moe import dispatch as tdisp
 from m3vit_tpu_torch.moe import gating as tgate
+from tests.jax_fast_compile import fast_jit as _jit
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -35,8 +40,9 @@ def test_small_topk_ties_match_jax():
         [0.0, 0.0, 0.9, 0.0, 0.9, 0.0, 0.0, 0.1],
         [0.2, 0.1, 0.2, 0.1, 0.2, 0.1, 0.2, 0.1],
     ], np.float32)
+    topk = _jit(jgate.small_topk, static_argnums=1)
     for m in (1, 3, 5):
-        jv, ji = jgate.small_topk(jnp.asarray(x), m)
+        jv, ji = topk(jnp.asarray(x), m)
         tv, ti = tgate.small_topk(torch.from_numpy(x), m)
         np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
         np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
@@ -46,8 +52,9 @@ def test_noisy_vmoe_gate_eval_matches_jax():
     rng = np.random.RandomState(0)
     inp = rng.randn(200, 32).astype(np.float32)
     w = rng.uniform(-0.5, 0.5, (32, 16)).astype(np.float32)
-    jg = jgate.noisy_vmoe_gate(jnp.asarray(inp), jnp.asarray(w), top_k=4,
-                               noise_std=1.0, train=False)
+    jg = _jit(functools.partial(jgate.noisy_vmoe_gate, top_k=4,
+                                noise_std=1.0, train=False))(
+        jnp.asarray(inp), jnp.asarray(w))
     tg = tgate.noisy_vmoe_gate(torch.from_numpy(inp), torch.from_numpy(w),
                                top_k=4)
     np.testing.assert_array_equal(tg.top_k_indices.numpy(),
@@ -75,8 +82,8 @@ def test_dispatch_plan_bitwise(E, C, seed):
     ids[rng.rand(S) < 0.1] = E          # masked
     ids[rng.rand(S) < 0.05] = E + 3     # masked, beyond E
     w = rng.rand(S).astype(np.float32)
-    jp = jdisp.make_dispatch_plan(jnp.asarray(ids, jnp.int32), E, C,
-                                  jnp.asarray(w))
+    jp = _jit(jdisp.make_dispatch_plan, static_argnums=(1, 2))(
+        jnp.asarray(ids, jnp.int32), E, C, jnp.asarray(w))
     tp = tdisp.make_dispatch_plan(torch.from_numpy(ids), E, C,
                                   torch.from_numpy(w))
     assert (np.asarray(jp.dst) == E * C).any()   # something was dropped
@@ -97,10 +104,10 @@ def test_moe_ffn_local_matches_jax():
     w2 = (rng.randn(E, H, d) * 0.1).astype(np.float32)
     b2 = (rng.randn(E, d) * 0.1).astype(np.float32)
     cap = 40   # < the busiest expert's load: drops are exercised
-    ref = jdisp.moe_ffn_local(
-        jnp.asarray(x), jnp.asarray(idx), jnp.asarray(gates),
-        jdisp.MoEFfnParams(*map(jnp.asarray, (w1, b1, w2, b2))),
-        capacity=cap, compute_dtype=jnp.float32)
+    ref = _jit(lambda x, idx, gates, *params: jdisp.moe_ffn_local(
+        x, idx, gates, jdisp.MoEFfnParams(*params), capacity=cap,
+        compute_dtype=jnp.float32))(
+        *map(jnp.asarray, (x, idx, gates, w1, b1, w2, b2)))
     t = torch.from_numpy
     got = tdisp.moe_ffn_local(
         t(x), t(idx), t(gates),
@@ -120,9 +127,9 @@ def test_gate_noise_is_an_input():
     tg = tgate.noisy_vmoe_gate(torch.from_numpy(inp), torch.from_numpy(w),
                                top_k=4, noise_std=2.0,
                                noise=torch.from_numpy(noise))
-    jg = jgate.noisy_vmoe_gate(
-        None, jnp.asarray(w), top_k=4, noise_std=2.0, train=False,
-        clean_logits=jnp.asarray(inp @ w + noise * 2.0 / 16))
+    jg = _jit(lambda w, logits: jgate.noisy_vmoe_gate(
+        None, w, top_k=4, noise_std=2.0, train=False, clean_logits=logits))(
+        jnp.asarray(w), jnp.asarray(inp @ w + noise * 2.0 / 16))
     np.testing.assert_array_equal(tg.top_k_indices.numpy(),
                                   np.asarray(jg.top_k_indices))
     np.testing.assert_allclose(tg.top_k_gates.numpy(),
@@ -136,9 +143,9 @@ def test_expert_ffn_dense_matches_jax():
     h = rng.randn(E, C, d).astype(np.float32)
     w1, b1, w2, b2 = ((rng.randn(*s) * 0.1).astype(np.float32)
                       for s in ((E, d, H), (E, H), (E, H, d), (E, d)))
-    ref = jdisp.expert_ffn_dense(
-        jnp.asarray(h), jdisp.MoEFfnParams(*map(jnp.asarray, (w1, b1, w2, b2))),
-        compute_dtype=jnp.float32)
+    ref = _jit(lambda h, *params: jdisp.expert_ffn_dense(
+        h, jdisp.MoEFfnParams(*params), compute_dtype=jnp.float32))(
+        *map(jnp.asarray, (h, w1, b1, w2, b2)))
     t = torch.from_numpy
     got = tdisp.expert_ffn_dense(
         t(h), tdisp.MoEFfnParams(t(w1).transpose(1, 2), t(b1),

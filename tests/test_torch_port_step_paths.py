@@ -55,10 +55,10 @@ from m3vit_tpu_torch.train.step import (
     make_train_step,
 )
 from m3vit_tpu_torch.utils.convert import jax_variables_to_state_dict
+from tests.jax_fast_compile import FAST_COMPILE, fast_jit as _jit
 
 ROOT = Path(__file__).resolve().parent.parent
 t = torch.from_numpy
-
 
 def _np(x):
     return np.asarray(x, np.float32)
@@ -109,7 +109,7 @@ def test_noisy_gate_matches_jax(train, top_k):
         return aux + (gate.gates * cot).sum(), (gate.top_k_indices,
                                                 gate.gates, aux)
 
-    (_, (idx, gates, aux)), grads = jax.jit(jax.value_and_grad(
+    (_, (idx, gates, aux)), grads = _jit(jax.value_and_grad(
         jfn, argnums=(0, 1, 2), has_aux=True))(*map(jnp.asarray,
                                                      (inp, wg, wn)))
     noise = t(np.array(jax.random.normal(key, (T, E), jnp.float32))) \
@@ -140,7 +140,7 @@ def test_loss_matches_jax(kind):
     else:
         lab = np.where(rng.rand(2, 16, 16, 1) < 0.2, 255.0,
                        rng.rand(2, 16, 16, 1) * 5).astype(np.float32)
-    ref, gref = jax.jit(jax.value_and_grad(jfun.get_loss_fn(kind)))(
+    ref, gref = _jit(jax.value_and_grad(jfun.get_loss_fn(kind)))(
         jnp.asarray(pred), jnp.asarray(lab))
     p = _nchw(pred).requires_grad_()
     got = tfun.get_loss_fn(kind)(p, _nchw(lab))
@@ -188,7 +188,7 @@ def test_single_task_loss_schemes_match_jax(scheme):
             p, g, [n], jfns, weights, single_task=n) for n in names}
         tfn = lambda p, g, n: tsch.multi_task_loss(  # noqa: E731
             p, g, [n], fns, weights, single_task=n)
-    refs = jax.jit(jfn)(*({k: jnp.asarray(v) for k, v in d.items()}
+    refs = _jit(jfn)(*({k: jnp.asarray(v) for k, v in d.items()}
                           for d in (preds, gts)))
     tp, tg = ({k: _nchw(v) for k, v in d.items()} for d in (preds, gts))
     for n in names:
@@ -213,7 +213,7 @@ SCHEDULES = {
 def test_schedule_matches_jax(name):
     """lr at every step of 7 epochs of 3 steps (the step schedule decays
     only once an epoch is strictly past a decay epoch); 1e-6 relative."""
-    js = jax.jit(jax_build_schedule(SCHEDULES[name], 3))
+    js = _jit(jax_build_schedule(SCHEDULES[name], 3))
     ts = build_schedule(SCHEDULES[name], 3)
     got = [ts(s) for s in range(21)]
     np.testing.assert_allclose(got, [float(js(s)) for s in range(21)],
@@ -267,7 +267,7 @@ def test_optimizer_trajectory_matches_optax(name):
     tx = jax_build_optimizer(cfg, steps_per_epoch=2)
     jp = jnp.asarray(p0)
     state = tx.init(jp)
-    update = jax.jit(tx.update)
+    update = _jit(tx.update)
     model = _Linear(p0)
     opt, schedule = build_optimizer(model.parameters(), cfg,
                                     steps_per_epoch=2)
@@ -316,11 +316,6 @@ WEIGHTS = {"semseg": 1.0, "normals": 10.0}
 OPT = {"optimizer": "sgd", "scheduler": "poly", "epochs": 3,
        "optimizer_kwargs": {"lr": 0.01, "momentum": 0.9,
                             "weight_decay": 1e-4}}
-#: XLA's CPU backend at its lowest optimisation level: the same f32
-#: programs, compiled in about half the time
-FAST_COMPILE = {"xla_backend_optimization_level": 0}
-
-
 def _config(name, task_dict=TASK_DICT, **over):
     """A reference YAML of configs/pascal, shrunk to IMG / EMBED / depth 2 /
     2 heads, f32, no rematerialisation; E=4, K=2 and gate noise 0 for the
@@ -681,7 +676,7 @@ def test_factory_model_matches_jax(model_runs, case):
     ("backbone", "resnet18", "queue 1 items 7 and 8"),
     ("head", "deeplab", "queue 1 items 7 and 8"),
     ("model", "mtan", "queue 1 item 8"),
-    ("model_kwargs", {"tam": True}, "TAM"),
+    ("stacked_tasks", True, "queue 1 item 7"),
     ("gate_task_specific_dim", 64, "queue 1 item 7"),
 ])
 def test_build_model_refuses_what_is_not_ported(key, value, match):

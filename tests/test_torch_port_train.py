@@ -58,9 +58,9 @@ from m3vit_tpu_torch.tasks import parse_task_dictionary
 from m3vit_tpu_torch.train.optim import build_optimizer
 from m3vit_tpu_torch.train.step import make_train_step
 from m3vit_tpu_torch.utils.convert import jax_variables_to_state_dict
+from tests.jax_fast_compile import FAST_COMPILE, fast_jit as _jit
 
 t = torch.from_numpy
-
 
 def _np(x):
     return np.asarray(x, np.float32)
@@ -68,7 +68,7 @@ def _np(x):
 
 def _jit_vjp(fn):
     """(primals, cotangent) -> the VJP of fn, as one jitted program."""
-    return jax.jit(lambda primals, g: jax.vjp(fn, *primals)[1](g))
+    return _jit(lambda primals, g: jax.vjp(fn, *primals)[1](g))
 
 
 @pytest.mark.parametrize("valid_len", [None, 50])
@@ -145,7 +145,7 @@ def test_gather_vjps_match_jax_custom_vjps(which):
     idx, gates = _routing(rng, T, E, K)
     x = rng.randn(T, d).astype(np.float32)
     y = rng.randn(E * cap, d).astype(np.float32)
-    jplan = jax.jit(jdisp.make_dispatch_plan, static_argnums=(1, 2))(
+    jplan = _jit(jdisp.make_dispatch_plan, static_argnums=(1, 2))(
         jnp.asarray(idx.reshape(-1)), E, cap, jnp.asarray(gates.reshape(-1)))
     plan = tdisp.make_dispatch_plan(t(idx.reshape(-1)), E, cap,
                                     t(gates.reshape(-1)))
@@ -186,7 +186,7 @@ def test_moe_ffn_local_grads_match_jax():
             capacity=cap, compute_dtype=jnp.float32)
         return jnp.sum(out * gy)
 
-    refs = jax.jit(jax.grad(jloss, argnums=tuple(range(6))))(
+    refs = _jit(jax.grad(jloss, argnums=tuple(range(6))))(
         *map(jnp.asarray, (x, gates, w1, b1, w2, b2)))
     leaves = [a.clone().requires_grad_() for a in (
         t(x), t(gates), t(w1).transpose(1, 2), t(b1), t(w2).transpose(1, 2),
@@ -219,7 +219,7 @@ def test_train_gate_aux_loss_matches_jax(noise_std):
                                      build_dense_gates=False)
         return jgate.moe_aux_loss(gate, K, E, True)
 
-    ref, (gi, gw) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1)))(
+    ref, (gi, gw) = _jit(jax.value_and_grad(jloss, argnums=(0, 1)))(
         jnp.asarray(inp), jnp.asarray(w))
     noise = np.array(jax.random.normal(key, (T, E), jnp.float32))
     x, wt = t(inp).requires_grad_(), t(w).requires_grad_()
@@ -266,7 +266,7 @@ def test_loss_matches_jax(task):
     tk = tasks[task]
     pred = rng.randn(2, 16, 16, tk.num_output).astype(np.float32)
     lab = _labels(rng, 2, 16, 16, [tk])[task]
-    ref, gref = jax.jit(jax.value_and_grad(
+    ref, gref = _jit(jax.value_and_grad(
         jax_loss_fn(task, {"edge_w": 0.95})))(
         jnp.asarray(pred), jnp.asarray(lab))
     p = _nchw(pred).requires_grad_()
@@ -289,7 +289,7 @@ def test_sgd_matches_optax():
     tx = jax_build_optimizer(cfg, steps_per_epoch=1)
     jp = jnp.asarray(p0)
     state = tx.init(jp)
-    update = jax.jit(tx.update)
+    update = _jit(tx.update)
     param = torch.nn.Parameter(t(p0.copy()))
     opt, schedule = build_optimizer([param], cfg, steps_per_epoch=1)
     for i, g in enumerate(grads):
@@ -321,7 +321,7 @@ def test_head_train_bn_matches_flax():
     # statistics in place
     params, stats = reference_pup_head_sd_to_params(
         {k: v.numpy().copy() for k, v in head.state_dict().items()}, "")
-    ref, new = jax.jit(functools.partial(
+    ref, new = _jit(functools.partial(
         JaxHead(img_size=(64, 64), patch_size=16, embed_dim=32,
                 num_classes=3).apply, train=True, mutable=["batch_stats"]))(
             {"params": params, "batch_stats": stats}, jnp.asarray(x))
@@ -368,9 +368,9 @@ TRAIN = dict(capacity_factor=1.25, vmoe_noisy_std=0.0, shared_prefix=True)
 
 @pytest.fixture(scope="module")
 def trajectories():
-    """STEPS train steps of the JAX model (one jitted program) and of the
-    port, from the same weights (the port's seeded init) on the same batch;
-    the state after step 1 and after the last step."""
+    """STEPS train steps of the JAX model (one jitted program, compiled
+    once) and of the port, from the same weights (the port's seeded init)
+    on the same batch; the state after step 1 and after the last step."""
     jtasks = jax_parse("PASCALContext", TASK_DICT)[0]
     names = [tk.name for tk in jtasks]
     rng = np.random.RandomState(9)
@@ -389,12 +389,14 @@ def trajectories():
     jmodel, _ = jax_build_flagship(tasks=jtasks, dtype=jnp.float32,
                                    use_checkpointing=False, **ARCH, **TRAIN)
     tx = jax_build_optimizer(OPT, steps_per_epoch=2)
-    state = jax.jit(lambda p, s: TrainState.create(
+    state = _jit(lambda p, s: TrainState.create(
         apply_fn=jmodel.apply, params=p, tx=tx, batch_stats=s))(params, stats)
     jstep = jax_make_train_step(
         jmodel, names, {n: jax_loss_fn(n, {"edge_w": 0.95}) for n in names},
         WEIGHTS, donate=False)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jstep = jstep.lower(state, jbatch, jax.random.key(0)).compile(
+        FAST_COMPILE)
     jmetrics, jstates = [], []
     for i in range(STEPS):
         state, m = jstep(state, jbatch, jax.random.key(i))
