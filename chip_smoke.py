@@ -55,6 +55,7 @@ script exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
 import os
@@ -102,6 +103,7 @@ from m3vit_tpu_torch.moe.gating import (  # noqa: E402
 from m3vit_tpu_torch.ops import _build  # noqa: E402
 from m3vit_tpu_torch.ops.expert_ffn import (  # noqa: E402
     BWD_KSTEP,
+    _scratch_bytes,
     bwd_plan,
     dequantize_weight,
     expert_ffn_bwd,
@@ -109,6 +111,7 @@ from m3vit_tpu_torch.ops.expert_ffn import (  # noqa: E402
     expert_ffn_fwd,
     expert_ffn_q_dequant,
     expert_ffn_q_fwd,
+    ffn_route,
     fused_expert_ffn_plain,
     quantized_expert_ffn_plain,
 )
@@ -295,9 +298,20 @@ def bound(flops: float, nbytes: float, peaks):
 # the device kernels K4 and K6 launch, by pass (substrings of their names)
 FFN_BWD_PASSES = (("ln_prepass", "ln_prepass_kernel"),
                   ("hidden", "ffn_bwd_hidden_kernel"),
-                  ("dh", "ffn_bwd_gemm_kernel<0"),
-                  ("dw1_dw2", "ffn_bwd_gemm_kernel<1"),
+                  ("dh", "ffn_gemm_kernel<0, 1"),
+                  ("dw1_dw2", "ffn_gemm_kernel<1, 1"),
                   ("dx", "ln_dx_kernel"), ("sums", "sum_parts_kernel"))
+
+
+# ... and the two-pass forward route of K3/K5/K7 at d in {768, 1024}
+# (csrc/ffn_fwd_gemm.cuh): K5's LayerNorm pre-pass, K7's dequantizing pass,
+# the hidden pass (bias + GELU epilogue), the output pass (bias, or bias and
+# K5's residual)
+FFN_TWO_PASS_PASSES = (("ln_prepass", "ln_prepass_kernel"),
+                       ("dequant", "dequant_banks_kernel"),
+                       ("hidden", "ffn_gemm_kernel<0, 0, 1"),
+                       ("output", "ffn_gemm_kernel<0, 0, 2"),
+                       ("output_residual", "ffn_gemm_kernel<0, 0, 3"))
 
 
 # ... and K7: its dequantizing pass, then K3's forward on the bf16 banks
@@ -322,6 +336,26 @@ def pass_times(fn, passes=FFN_BWD_PASSES):
             return out
     print("chip_smoke: no device events in three profiles", file=sys.stderr)
     return None
+
+
+def two_pass_readings(fn, name: str, shape, hidden_elems: int):
+    """On the two-pass forward route (ops/expert_ffn.py:ffn_route), each
+    pass's device time inside a call of fn, the scratch the call allocates
+    (kernel `name`'s C <name>_scratch for `shape`), and the measured cost of
+    the hidden activation's round trip through device memory: a copy of a
+    bf16 tensor of `hidden_elems` elements (it reads them once and writes
+    them once); {} on the fused route."""
+    if ffn_route(shape[-2], shape[-1]) != "two_pass":
+        return {}
+    a = torch.empty(hidden_elems, dtype=torch.bfloat16, device="cuda")
+    b = torch.empty_like(a)
+    out = {"route": "two_pass",
+           "scratch_mb": _scratch_bytes(name, *shape) / 1e6,
+           "hidden_mb_each_way": 2.0 * hidden_elems / 1e6,
+           "hidden_round_trip_ms": time_ms(lambda: b.copy_(a), 30),
+           "passes_ms": pass_times(fn, FFN_TWO_PASS_PASSES)}
+    del a, b
+    return out
 
 
 def call_memory_mb(fn) -> float:
@@ -383,18 +417,45 @@ def attention_phase(peaks, dev):
     return cases
 
 
+# K3's shapes on the wider models' paths (the flagship's are ffn_phase's
+# own): ViT-base M3ViT's experts at the train capacity (B=8, 1025 tokens an
+# image, E 16, K 2, cf 1.25) and at the CLI's no-drop eval capacity, its
+# dense MLP; ViT-large's dense MLP (B=8, 1201 tokens); ViT-tiny MoE's
+# experts (B=4, 129 tokens) and dense MLP: the widths 768, 1024 and 192
+WIDE_FFN_SHAPES = (
+    ("vit_base_experts_train", 16, compute_capacity(8200, 2, 16, 1.25), 768,
+     1536),
+    ("vit_base_experts_eval_nodrop", 16, 8200, 768, 1536),
+    ("vit_base_dense_mlp", 1, 8200, 768, 3072),
+    ("vit_large_dense_mlp", 1, 9608, 1024, 4096),
+    ("vit_tiny_experts_train", 16, compute_capacity(516, 2, 16, 1.25), 192,
+     384),
+    ("vit_tiny_dense_mlp", 1, 516, 192, 768))
+# K4 and K6 at the train steps' shapes, K5 at the dense blocks', K7 at
+# ViT-base's int8 serving capacities (eval cf 4.0: buckets 8 and 1)
+WIDE_FFN_BWD_SHAPES = tuple(c for c in WIDE_FFN_SHAPES
+                            if "nodrop" not in c[0])
+WIDE_LN_MLP_SHAPES = (("vit_base", 8200, 768, 3072),
+                      ("vit_large", 9608, 1024, 4096),
+                      ("vit_tiny", 516, 192, 768))
+WIDE_FFN_Q_SHAPES = (
+    ("vit_base_bucket_8", 16, compute_capacity(8200, 2, 16, 4.0), 768, 1536),
+    ("vit_base_bucket_1", 16, compute_capacity(1025, 2, 16, 4.0), 768, 1536))
+
+
 def ffn_phase(peaks, dev):
     g = torch.Generator(device=dev).manual_seed(1)
     cases = []
     # expert banks at the serving capacity (cf 2.0) and the train capacity
     # (cf 1.25), the dense MLP at E=1, and the expert banks at the 5-task
-    # eval's no-drop capacity (every token); B=8, 1025 tokens per image
+    # eval's no-drop capacity (every token); B=8, 1025 tokens per image;
+    # then the wider models' shapes
     nodrop = compute_capacity(8 * 1025, 4, 16, parse_capacity_factor("nodrop"))
     for name, E, Ct, d, Hd in (("experts", 16, 4104, 384, 384),
                                ("dense_mlp", 1, 8200, 384, 1536),
                                ("experts_train", 16, 2568, 384, 384),
                                ("experts_eval_nodrop", 16, nodrop, 384,
-                                384)):
+                                384)) + WIDE_FFN_SHAPES:
         r = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
         # unit-scale tokens (LayerNorm output) and fan-in scaled weights
         h = r(E, Ct, d).bfloat16()
@@ -431,7 +492,11 @@ def ffn_phase(peaks, dev):
             "yardstick_bmm_gelu_bmm_ms": time_ms(yardstick),
             "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6,
+            **two_pass_readings(lambda: expert_ffn_fwd(h, w1, b1, w2, b2),
+                                "expert_ffn_fwd", (E, Ct, d, Hd),
+                                E * Ct * Hd),
         })
+        del h, w1, w2, got, ref, diff
     emit({"phase": "expert_ffn_fwd", "cases": cases})
     return cases
 
@@ -521,7 +586,8 @@ def ffn_bwd_phase(peaks, dev):
     cases, plans = [], {}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, E, Ct, d, Hd in (("experts", 16, 2568, 384, 384),
-                               ("dense_mlp", 1, 8200, 384, 1536)):
+                               ("dense_mlp", 1, 8200, 384, 1536)
+                               ) + WIDE_FFN_BWD_SHAPES:
         r = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
         h = r(E, Ct, d).bfloat16()
         w1 = (r(E, Hd, d) * d ** -0.5).bfloat16()
@@ -609,7 +675,8 @@ def ffn_q_phase(peaks, dev):
     g = torch.Generator(device=dev).manual_seed(4)
     cases = []
     for name, E, Ct, d, Hd in (("bucket_8", 16, 4104, 384, 384),
-                               ("bucket_1", 16, 520, 384, 384)):
+                               ("bucket_1", 16, 520, 384, 384)
+                               ) + WIDE_FFN_Q_SHAPES:
         r = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
         h = r(E, Ct, d).bfloat16()
         q1, s1 = quantize_weight(r(E, Hd, d) * d ** -0.5)
@@ -656,7 +723,8 @@ def ffn_q_phase(peaks, dev):
             "bitwise_k3_on_dequantized_banks": k3_bitwise,
             "ms": ms, "host_ms": host_ms, "tflops": flops / ms / 1e9,
             "passes_ms": pass_times(lambda: expert_ffn_q_fwd(*args),
-                                    FFN_Q_PASSES),
+                                    FFN_Q_PASSES)
+            if ffn_route(d, Hd) == "fused" else None,
             "call_memory_mb": call_memory_mb(
                 lambda: expert_ffn_q_fwd(*args)),
             "dequant": {
@@ -672,6 +740,9 @@ def ffn_q_phase(peaks, dev):
             "yardstick_dequant_bmm_gelu_bmm_ms": time_ms(yardstick),
             "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6,
+            **two_pass_readings(lambda: expert_ffn_q_fwd(*args),
+                                "expert_ffn_q_fwd", (E, Ct, d, Hd),
+                                E * Ct * Hd),
         })
     emit({"phase": "expert_ffn_q_fwd", "cases": cases})
     return cases
@@ -698,86 +769,94 @@ def library_ln_mlp(x, gamma, beta, w1, b1, w2, b2):
 
 
 def ln_mlp_fwd_phase(peaks, dev):
-    """K5 at the dense blocks' shape."""
-    x, gamma, beta, w1, b1, w2, b2, _ = ln_mlp_inputs(dev, 5)
-    args = (x, gamma, beta, w1, b1, w2, b2)
-    S, d = x.shape
-    H = w1.shape[0]
-    got = ln_mlp_fwd(*args)
-    same = torch.equal(got, ln_mlp_fwd(*args))
-    ref = ln_mlp_residual_plain(*args)
-    diff = got.float() - ref.float()
-    err = diff.abs().max().item()
-    rel = (diff.norm() / ref.float().norm()).item()
-    check(err <= FFN_ABS_TOL and rel <= FFN_REL_TOL and same
-          and bool(torch.isfinite(got).all()),
-          f"ln_mlp_fwd: max abs err {err}, rel {rel}, bitwise repeatable "
-          f"{same}")
-    flops = 4.0 * S * d * H
-    nbytes = 2.0 * 2 * S * d + 2.0 * 2 * d * H + 4.0 * (3 * d + H)
-    b_ms, b_by = bound(flops, nbytes, peaks)
-    ms, host_ms = time_calls(lambda: ln_mlp_fwd(*args))
-    cases = [{
-        "shape": f"x [{S},{d}] bf16 x hidden {H}",
-        "max_abs_err": err, "rel_err": rel, "bitwise_repeatable": same,
-        "ms": ms, "host_ms": host_ms, "tflops": flops / ms / 1e9,
-        "plain_ms": time_ms(lambda: ln_mlp_residual_plain(*args), 20),
-        "library_ms": None,
-        "yardstick_layer_norm_linear_gelu_linear_add_ms":
-            time_ms(lambda: library_ln_mlp(*args)),
-        "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
-        "mbytes": nbytes / 1e6,
-    }]
+    """K5 at the dense blocks' shape, then at the wider models'."""
+    cases = []
+    for case, S, d, H in (("flagship", 8200, 384, 1536),) + WIDE_LN_MLP_SHAPES:
+        x, gamma, beta, w1, b1, w2, b2, _ = ln_mlp_inputs(dev, 5, S, d, H)
+        args = (x, gamma, beta, w1, b1, w2, b2)
+        got = ln_mlp_fwd(*args)
+        same = torch.equal(got, ln_mlp_fwd(*args))
+        ref = ln_mlp_residual_plain(*args)
+        diff = got.float() - ref.float()
+        err = diff.abs().max().item()
+        rel = (diff.norm() / ref.float().norm()).item()
+        check(err <= FFN_ABS_TOL and rel <= FFN_REL_TOL and same
+              and bool(torch.isfinite(got).all()),
+              f"ln_mlp_fwd {case}: max abs err {err}, rel {rel}, bitwise "
+              f"repeatable {same}")
+        flops = 4.0 * S * d * H
+        nbytes = 2.0 * 2 * S * d + 2.0 * 2 * d * H + 4.0 * (3 * d + H)
+        b_ms, b_by = bound(flops, nbytes, peaks)
+        ms, host_ms = time_calls(lambda: ln_mlp_fwd(*args))
+        cases.append({
+            "shape": f"{case}: x [{S},{d}] bf16 x hidden {H}",
+            "max_abs_err": err, "rel_err": rel, "bitwise_repeatable": same,
+            "ms": ms, "host_ms": host_ms, "tflops": flops / ms / 1e9,
+            "plain_ms": time_ms(lambda: ln_mlp_residual_plain(*args), 20),
+            "library_ms": None,
+            "yardstick_layer_norm_linear_gelu_linear_add_ms":
+                time_ms(lambda: library_ln_mlp(*args)),
+            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6,
+            **two_pass_readings(lambda: ln_mlp_fwd(*args), "ln_mlp_fwd",
+                                (S, d, H), S * H),
+        })
+        del x, got, ref, diff
     emit({"phase": "ln_mlp_fwd", "cases": cases})
     return cases
 
 
 def ln_mlp_bwd_phase(peaks, dev):
-    """K6 at the dense blocks' shape."""
-    x, gamma, beta, w1, b1, w2, b2, gr = ln_mlp_inputs(dev, 6)
-    args = (x, gamma, beta, w1, b1, w2, gr)
-    S, d = x.shape
-    H = w1.shape[0]
-    got = ln_mlp_bwd(*args)
-    same = all(torch.equal(a, b) for a, b in zip(got, ln_mlp_bwd(*args)))
-    check(same, "ln_mlp_bwd: two runs differ")
-    ref = ln_mlp_residual_bwd_plain(*args)
-    errs = {k: check_grads(a, b, f"ln_mlp_bwd {k}")
-            for k, a, b in zip(("dx", "dgamma", "dbeta", "dw1", "db1", "dw2",
-                                "db2"), got, ref)}
-    # the yardstick's autograd backward, its graph built once
-    leaves = [t.detach().clone().requires_grad_()
-              for t in (x, gamma, beta, w1, b1, w2, b2)]
-    out = library_ln_mlp(*leaves)
-    flops = 10.0 * S * d * H
-    nbytes = (2.0 * 3 * S * d + 2.0 * 2 * d * H + 4.0 * 2 * d * H
-              + 4.0 * (2 * d + H) + 4.0 * (3 * d + H))
-    b_ms, b_by = bound(flops, nbytes, peaks)
-    ms, host_ms = time_calls(lambda: ln_mlp_bwd(*args))
-    plan = bwd_plan(1, S, d, H,
-                    torch.cuda.get_device_properties(dev).multi_processor_count)
-    cases = [{
-        "shape": f"x [{S},{d}] bf16 x hidden {H}", **errs,
-        "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-        "bitwise_repeatable": same,
-        "ms": ms, "host_ms": host_ms, "tflops": flops / ms / 1e9,
-        "passes_ms": pass_times(lambda: ln_mlp_bwd(*args)),
-        "call_memory_mb": call_memory_mb(lambda: ln_mlp_bwd(*args)),
-        "plain_ms": time_ms(lambda: ln_mlp_residual_bwd_plain(*args), 10),
-        "library_ms": None,
-        "yardstick_autograd_backward_ms": time_ms(
-            lambda: torch.autograd.grad(out, leaves, gr, retain_graph=True)),
-        "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
-        "mbytes": nbytes / 1e6,
-    }]
-    emit({"phase": "ln_mlp_bwd", "cases": cases, "plan": plan._asdict()})
+    """K6 at the dense blocks' shape, then at the wider models'."""
+    cases, plans = [], {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for case, S, d, H in (("flagship", 8200, 384, 1536),) + WIDE_LN_MLP_SHAPES:
+        x, gamma, beta, w1, b1, w2, b2, gr = ln_mlp_inputs(dev, 6, S, d, H)
+        args = (x, gamma, beta, w1, b1, w2, gr)
+        got = ln_mlp_bwd(*args)
+        same = all(torch.equal(a, b) for a, b in zip(got, ln_mlp_bwd(*args)))
+        check(same, f"ln_mlp_bwd {case}: two runs differ")
+        ref = ln_mlp_residual_bwd_plain(*args)
+        errs = {k: check_grads(a, b, f"ln_mlp_bwd {case} {k}")
+                for k, a, b in zip(("dx", "dgamma", "dbeta", "dw1", "db1",
+                                    "dw2", "db2"), got, ref)}
+        del got, ref
+        # the yardstick's autograd backward, its graph built once
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, gamma, beta, w1, b1, w2, b2)]
+        out = library_ln_mlp(*leaves)
+        flops = 10.0 * S * d * H
+        nbytes = (2.0 * 3 * S * d + 2.0 * 2 * d * H + 4.0 * 2 * d * H
+                  + 4.0 * (2 * d + H) + 4.0 * (3 * d + H))
+        b_ms, b_by = bound(flops, nbytes, peaks)
+        ms, host_ms = time_calls(lambda: ln_mlp_bwd(*args))
+        plans[case] = bwd_plan(1, S, d, H, sms)._asdict()
+        cases.append({
+            "shape": f"{case}: x [{S},{d}] bf16 x hidden {H}", **errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "bitwise_repeatable": same,
+            "ms": ms, "host_ms": host_ms, "tflops": flops / ms / 1e9,
+            "passes_ms": pass_times(lambda: ln_mlp_bwd(*args)),
+            "call_memory_mb": call_memory_mb(lambda: ln_mlp_bwd(*args)),
+            "plain_ms": time_ms(lambda: ln_mlp_residual_bwd_plain(*args),
+                                10),
+            "library_ms": None,
+            "yardstick_autograd_backward_ms": time_ms(
+                lambda: torch.autograd.grad(out, leaves, gr,
+                                            retain_graph=True)),
+            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6,
+        })
+        del out, leaves, x, gr
+    emit({"phase": "ln_mlp_bwd", "cases": cases, "plans": plans})
     return cases
 
 
-def time_requests(sess, x, post: bool, n: int):
-    """One untimed and `n` timed semseg requests of the batch `x` (numpy);
-    checks the last output and returns its latency row."""
-    b = x.shape[0]
+def time_requests(sess, x, post: bool, n: int, classes: int = 21):
+    """One untimed and `n` timed semseg requests of the batch `x` (numpy,
+    [b, H, W, 3]) for a model of `classes` semseg classes; checks the last
+    output and returns its latency row."""
+    b, H, W = x.shape[:3]
     out = sess.predict(x, "semseg", postprocess=post)
     lats = []
     t_window = time.perf_counter()
@@ -787,11 +866,11 @@ def time_requests(sess, x, post: bool, n: int):
         lats.append((time.perf_counter() - t0) * 1e3)
     window_s = time.perf_counter() - t_window
     if post:
-        check(out.shape == (b, IMG, IMG) and out.dtype == np.uint8
-              and int(out.max()) < 21,
+        check(out.shape == (b, H, W) and out.dtype == np.uint8
+              and int(out.max()) < classes,
               f"bucket {b} class map {out.shape} {out.dtype}")
     else:
-        check(out.shape == (b, IMG, IMG, 21)
+        check(out.shape == (b, H, W, classes)
               and bool(np.isfinite(out).all()),
               f"bucket {b} logits {out.shape} finite")
     # img/s over the whole window: every image over all the time
@@ -1100,8 +1179,9 @@ def make_grad_run(dev, names, batch, loss_fns, init, cotangent):
 
 def timed_steps(model, names, loss_fns, batch, dev, expected, what: str,
                 make_step=make_train_step, loss_falls: bool = False,
-                profile: bool = True):
-    """TIMED_STEPS train steps (`make_step`'s, SGD) on one batch, each
+                profile: bool = True, steps: int = TIMED_STEPS,
+                weights=LOSS_WEIGHTS):
+    """`steps` train steps (`make_step`'s, SGD) on one batch, each
     between CUDA events, with the kernels' launches counted over them and
     held to `expected` per step, and with loss_falls the loss lower after
     them than at their first; with `profile`, the device time of a step
@@ -1109,14 +1189,14 @@ def timed_steps(model, names, loss_fns, batch, dev, expected, what: str,
     readings, the launches)."""
     opt, schedule = build_optimizer(model.parameters(), OPTIM,
                                     steps_per_epoch=100)
-    step = make_step(model, names, loss_fns, LOSS_WEIGHTS, opt, schedule)
+    step = make_step(model, names, loss_fns, weights, opt, schedule)
     noise = torch.Generator(device=dev).manual_seed(2)
     for _ in range(2):   # warm-up
         step(batch, noise)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(TIMED_STEPS)]
+           torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
     _build.reset_launches()            # the train path starts here
     t_window = time.perf_counter()
     metrics = []
@@ -1134,9 +1214,9 @@ def timed_steps(model, names, loss_fns, batch, dev, expected, what: str,
     check(all(np.isfinite(losses)), f"{what} timed step loss {losses}")
     if loss_falls:
         check(losses[-1] < losses[0],
-              f"{what}: losses over {TIMED_STEPS} timed steps do not fall: "
+              f"{what}: losses over {steps} timed steps do not fall: "
               f"{losses}")
-    per_step = check_launches(launches, TIMED_STEPS, expected, what)
+    per_step = check_launches(launches, steps, expected, what)
     B = batch["image"].shape[0]
     step_ms = [a.elapsed_time(b) for a, b in ev]
     median = float(np.median(step_ms))
@@ -1146,9 +1226,9 @@ def timed_steps(model, names, loss_fns, batch, dev, expected, what: str,
         prof = {"device_ms_per_step": p["device_ms"],
                 "device_idle_frac": 1.0 - p["device_ms"] / median,
                 "top_kernels": p["top"]}
-    return {"batch": B, "steps": TIMED_STEPS,
+    return {"batch": B, "steps": steps,
             "step_ms_median": median, "step_ms": step_ms, **prof,
-            "img_per_s": TIMED_STEPS * B / window_s,
+            "img_per_s": steps * B / window_s,
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches_per_step": per_step, "losses": losses,
             **({"moe_dropped_frac": m["moe_dropped_frac"].item()}
@@ -1422,7 +1502,8 @@ def serving_vs_plain_and_f32(model, ref, names, imgs, what: str):
     path's class-map agreement with f32 at least the plain bf16 path's less
     F32_AGREE_SLACK."""
     def predict(m):
-        return InferenceSession(m, names, (IMG, IMG), buckets=(len(imgs),),
+        return InferenceSession(m, names, imgs.shape[1:3],
+                                buckets=(len(imgs),),
                                 device=next(m.parameters()).device
                                 ).predict(imgs, "semseg")
 
@@ -1838,17 +1919,19 @@ CLI_PHASE_LIMIT_S = 150.0
 
 
 def expected_cli_launches(steps: int, eval_batches: int,
-                          remat: bool = True):
-    """K1-K4 launches of `steps` joint train steps without the shared
-    prefix (12 each per task pass) and `eval_batches` no-drop eval batches
-    (12 K1 + 12 K3 a task pass); kernels launched 0 times left out.  With
-    remat (the headline config's use_checkpointing) the backward runs
-    every block's forward again: one more K1 and one more K3 a block and
-    task pass."""
-    per = expected_train_launches(12, 1)
+                          remat: bool = True, ln_mlp: bool = False):
+    """Launches of `steps` joint train steps of a 12-block, 5-task MoE
+    model without the shared prefix (12 K1-K4 each per task pass; with
+    ln_mlp the 6 dense blocks' K3/K4 are K5/K6) and `eval_batches` no-drop
+    eval batches (one forward launch a block and task pass); kernels
+    launched 0 times left out.  With remat (the headline config's
+    use_checkpointing) the backward runs every block's forward again: one
+    more forward launch a block and task pass."""
+    per = expected_train_launches(12, 1, ln_mlp)
     out = {k: 5 * v * steps for k, v in per.items()}
-    for k in ("flash_attention_fwd", "expert_ffn_fwd"):
-        out[k] += 12 * 5 * (eval_batches + (steps if remat else 0))
+    fwd = expected_serving_launches(12, ln_mlp)
+    for k, v in fwd.items():
+        out[k] += v * 5 * (eval_batches + (steps if remat else 0))
     return {k: v for k, v in out.items() if v}
 
 
@@ -2463,7 +2546,442 @@ def recipe_phase(dev, root: str):
     return paths
 
 
-def main() -> int:
+# the wider model families: the paper's ViT-base M3ViT through the CLI and
+# served (d 768), the dense ViT-large (d 1024) and the ViT-tiny MoE (d 192),
+# at full width and depth, seeded random weights
+WIDE_MOE_CONFIG = ("configs/pascal/vit_moe/"
+                   "pup_moe_vit_base_multi_task_baseline.yml")
+LARGE_CONFIG = "configs/nyud/vit/pup_vit_large_semseg.yml"
+TINY_CONFIG = "configs/cityscapes/pup_vit_tiny_deit_multi_task_baseline.yml"
+WIDE_IMAGES = 32           # the ViT-base CLI's tree: 4 steps an epoch at B=8
+WIDE_STOP = 6              # run 1 stops after 6 steps (2 into epoch 1)
+WIDE_STEPS = 5             # timed synthetic-batch steps of each model
+WIDE_REQUESTS = 20         # timed requests per serving cell
+WIDE_PHASE_LIMIT_S = 300.0
+
+
+def load_config(path: str):
+    import yaml
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           path)) as f:
+        return yaml.safe_load(f)
+
+
+def train_vs_plain(model, names, batch, p, dev, what: str):
+    """One train-mode forward and backward of `model` (config `p`) from its
+    current state with kernels and on the plain path, the same batch and
+    gate-noise seed, the plain path replaying the kernel path's routing
+    (RoutingTape): the loss (+ 0.01 cv) to TRAIN_LOSS_REL_TOL; then the
+    backbone alone (an MoE backbone routing for task 0) under a fixed
+    random cotangent on its output tokens, each parameter group's gradient
+    to BACKBONE_GRAD_REL_TOL.  Leaves the model on the kernel path in its
+    initial state."""
+    loss_fns, weights = build_loss_fns(p), p["loss_kwargs"]["loss_weights"]
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    moe = not isinstance(model.backbone, VisionTransformer)
+    cotangent = torch.randn(
+        (batch["image"].shape[0],) + tuple(model.backbone.pos_embed.shape[1:]),
+        device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+
+    def run(kernels: bool, tape, alone: bool):
+        model.load_state_dict(init)
+        set_use_kernels(model, kernels)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        noise = torch.Generator(device=dev).manual_seed(1)
+        loss = None
+        with tape if moe else contextlib.nullcontext():
+            if alone:
+                out = (model.backbone(batch["image"], 0, noise) if moe
+                       else model.backbone(batch["image"]))
+                (out[0] if moe else out).float().backward(cotangent)
+            else:
+                pred, cv, _ = model(batch["image"], noise=noise)
+                total = multi_task_loss(pred, batch, names, loss_fns,
+                                        weights)["total"] + 0.01 * cv
+                total.backward()
+                loss = total.item()
+        return loss, param_grads(model)
+
+    tapes = {mode: RoutingTape() for mode in ("step", "backbone")}
+    k_loss = run(True, tapes["step"], False)[0]
+    k_bb = run(True, tapes["backbone"], True)[1]
+    before = dict(_build.launches)
+    p_loss = run(False, tapes["step"], False)[0]
+    p_bb = run(False, tapes["backbone"], True)[1]
+    check(dict(_build.launches) == before, f"{what}: plain runs launched a "
+          "kernel")
+    backbone = rel_by_group(k_bb, p_bb)
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    check(np.isfinite(k_loss) and loss_rel <= TRAIN_LOSS_REL_TOL
+          and all(v <= BACKBONE_GRAD_REL_TOL for v in backbone.values()),
+          f"{what} train kernel vs plain: loss {k_loss} vs {p_loss} (rel "
+          f"limit {TRAIN_LOSS_REL_TOL}); backbone grad rel err under a fixed "
+          f"cotangent {backbone} (limit {BACKBONE_GRAD_REL_TOL})")
+    set_use_kernels(model, True)
+    model.load_state_dict(init)
+    model.zero_grad(set_to_none=True)
+    return {"loss_kernel": k_loss, "loss_plain": p_loss,
+            "loss_rel_err": loss_rel,
+            "backbone_cotangent": {"grad_rel_err": backbone},
+            "rerouted_token_frac": {
+                m: t.rerouted / t.tokens for m, t in tapes.items()
+                if t.tokens}}
+
+
+def serve_rows(model, names, hw, buckets, classes: int, expected, what: str,
+               seed: int):
+    """uint8 semseg requests (class map out) at each bucket: WIDE_REQUESTS
+    timed each, launches counted per backbone pass over all of them, the
+    peak memory."""
+    sess = InferenceSession(model, names, hw, buckets=buckets,
+                            raw_uint8_input=True,
+                            device=next(model.parameters()).device)
+    sess.warmup(tasks=["semseg"], postprocess=True)
+    rng = np.random.RandomState(seed)
+    rows = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()            # the serving path starts here
+    for b in buckets:
+        u8 = rng.randint(0, 256, (b,) + tuple(hw) + (3,)).astype(np.uint8)
+        rows.append({"bucket": b, "uint8_post": time_requests(
+            sess, u8, True, WIDE_REQUESTS, classes)})
+    launches = dict(_build.launches)   # ... and ends here
+    per_pass = check_launches(launches, len(buckets) * (WIDE_REQUESTS + 1),
+                              expected, what)
+    return {"rows": rows, "launches_per_pass": per_pass,
+            "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6}, \
+        launches
+
+
+def wide_cli_phase(dev, root: str):
+    """The paper's ViT-base M3ViT (WIDE_MOE_CONFIG: d 768, 12 heads, E 16,
+    K 2, expert hidden 1536, multi-gate, five PASCAL tasks, TAM level 0,
+    remat, 512^2, B=8) through the trainer CLI on a fabricated PASCAL tree
+    of WIDE_IMAGES images: a run stopped after WIDE_STOP steps, its
+    --resume (the epoch's rest, one no-drop evaluation, checkpoints),
+    --eval against the resumed run's results, and a short run with
+    --use_pallas_ln_mlp (K5/K6 at 768); launches counted exactly over each
+    run; the models of run 1 and of the ln_mlp run each held against their
+    plain path (train_vs_plain), then the CLI's train step on a synthetic
+    batch (WIDE_STEPS timed steps that lower the loss); the CLI's ms per
+    step beside that step, and each run's peak memory."""
+    import yaml
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    db = os.path.join(root, "PASCAL_MT")
+    t0 = time.perf_counter()
+    subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from fabricate_dataset import fabricate_pascal; "
+         "fabricate_pascal(sys.argv[2], int(sys.argv[3]), "
+         "(int(sys.argv[4]), int(sys.argv[5])))",
+         os.path.join(here, "scripts"), db, str(WIDE_IMAGES),
+         *map(str, CLI_HW)], check=True, timeout=300)
+    fabricate_s = time.perf_counter() - t0
+    env, cfg = os.path.join(root, "env.yml"), os.path.join(root, "config.yml")
+    with open(env, "w") as f:
+        yaml.safe_dump({"root_dir": os.path.join(root, "runs"),
+                        "dataset_roots": {"PASCAL_MT": db}}, f)
+    exp = load_config(WIDE_MOE_CONFIG)
+    exp.update(edge_odsF_matcher="greedy", edge_odsF_thresholds=5)
+    with open(cfg, "w") as f:
+        yaml.safe_dump(exp, f)
+    p = create_config(env, cfg, {"moe_eval_capacity_factor":
+                                 parse_capacity_factor("nodrop")})
+    spe = WIDE_IMAGES // CLI_BATCH
+    base = ["--config_env", env, "--config_exp", cfg, "--trBatch",
+            str(CLI_BATCH), "--valBatch", str(CLI_BATCH), "--epochs", "2",
+            "--moe_eval_capacity_factor", "nodrop"]
+    runs, launches, peak = {}, {}, {}
+    vs_plain, readings, synth = {}, {}, {}
+    # the train step as cli/train.py builds it (cv weight 0.01, one
+    # micro-batch), on the optimizer timed_steps makes
+    cli_step = functools.partial(make_train_step, analysis_metrics=True)
+    names = list(p["TASK_NAMES"])
+    log_path = os.path.join(root, "wide_cli.log")
+    try:
+        with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+            for name, extra in (
+                    ("stop", ["--stop_after_steps", str(WIDE_STOP)]),
+                    ("resume", ["--resume"]), ("eval", ["--eval"]),
+                    ("ln_mlp", ["--use_pallas_ln_mlp", "--run_name",
+                                "wide_ln_mlp", "--stop_after_steps", "2"])):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                _build.reset_launches()    # the run's path starts here
+                runs[name] = cli_main(base + extra)
+                torch.cuda.synchronize()
+                launches[name] = dict(_build.launches)   # ... ends here
+                runs[name]["seconds"] = time.perf_counter() - t0
+                peak[name] = torch.cuda.max_memory_allocated() / 1e9
+                if name in ("stop", "ln_mlp"):
+                    # the run's own model against its plain path, then the
+                    # CLI's step on a synthetic batch, with a fresh SGD at
+                    # the config's rate (run 1's poly schedule over 2
+                    # epochs is at its end there, where the rate is 0)
+                    model = runs[name]["state"]["model"]
+                    batch = synthetic_batch(
+                        torch.Generator(device=dev).manual_seed(0),
+                        p["TASKS"], CLI_BATCH, (IMG, IMG))
+                    vs_plain[name] = train_vs_plain(
+                        model, names, batch, p, dev, f"wide cli run {name}")
+                    readings[name], synth[name] = timed_steps(
+                        model, names, build_loss_fns(p), batch, dev,
+                        expected_cli_launches(1, 0, ln_mlp=name == "ln_mlp"),
+                        f"wide cli run {name}: the CLI's step on a "
+                        "synthetic batch", make_step=cli_step,
+                        loss_falls=True, profile=False, steps=WIDE_STEPS,
+                        weights=p["loss_kwargs"]["loss_weights"])
+                    del model, batch
+                runs[name].pop("state")
+                torch.cuda.empty_cache()
+    except BaseException:
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                print(f.read()[-6000:], file=sys.stderr)
+        raise
+    r1, r2, r3, r4 = (runs[k] for k in ("stop", "resume", "eval", "ln_mlp"))
+    check(r1.get("stopped_at_step") == WIDE_STOP
+          and r1["steps_run"] == WIDE_STOP
+          and r2["steps_run"] == 2 * spe - WIDE_STOP
+          and r2.get("best") is not None
+          and r4.get("stopped_at_step") == 2,
+          f"wide cli: run 1 stopped at {r1.get('stopped_at_step')} after "
+          f"{r1['steps_run']} steps, run 2 {r2['steps_run']} steps (best "
+          f"{r2.get('best') is not None}), ln_mlp run stopped at "
+          f"{r4.get('stopped_at_step')}")
+    per = {}
+    for name, (S, V, ln) in (("stop", (WIDE_STOP, 0, False)),
+                             ("resume", (2 * spe - WIDE_STOP, spe, False)),
+                             ("eval", (0, spe, False)),
+                             ("ln_mlp", (2, 0, True))):
+        per[name] = check_launches(launches[name], 1,
+                                   expected_cli_launches(S, V, ln_mlp=ln),
+                                   f"wide cli run {name}")
+    ref_leaves = dict(_leaves(r2["best"]))
+    got_leaves = dict(_leaves({k: r3[k] for k in r2["best"]}))
+    eval_rel = max(abs(got_leaves[k] - v) / max(abs(v), 1e-12)
+                   for k, v in ref_leaves.items())
+    check(got_leaves.keys() == ref_leaves.keys()
+          and eval_rel <= CLI_EVAL_REL_TOL
+          and all(np.isfinite(v) for v in got_leaves.values()),
+          f"wide cli --eval vs run 2's results: max rel diff {eval_rel} "
+          f"(limit {CLI_EVAL_REL_TOL})")
+    t = dict(r1["step_times"])
+    gaps = {s: (t[s] - t[s - 1]) * 1e3 for s in t
+            if s - 1 in t and (s - 1) % spe and s > 2}
+    cli_ms = float(np.median(list(gaps.values()))) if gaps else None
+    emit({"phase": "wide_cli", "config": WIDE_MOE_CONFIG,
+          "images": WIDE_IMAGES, "fabricate_s": fabricate_s,
+          "runs": {k: _summary(r) for k, r in runs.items()},
+          "launches": launches, "launches_expected_equal": per,
+          "peak_memory_gb": peak, "eval_vs_run2_max_rel": eval_rel,
+          "cli_ms_per_step_median": cli_ms, "cli_step_gaps_ms": gaps,
+          "train_kernel_vs_plain": vs_plain, "synthetic_step": readings})
+    return {"wide_cli": launches["stop"], "wide_cli_ln_mlp":
+            launches["ln_mlp"], "wide_cli_synthetic_step": synth["stop"],
+            "wide_cli_ln_mlp_synthetic_step": synth["ln_mlp"]}
+
+
+def wide_serving_phase(dev):
+    """ViT-base M3ViT (WIDE_MOE_CONFIG, seed 0) served: semseg at buckets 1
+    and 8, float and with its expert banks quantized to int8 (K7 at 768);
+    each held against its plain path at bucket 8 (float: logits to
+    LOGIT_REL_TOL and class maps against an f32 copy as for the dense
+    ViT; int8: class maps to AGREE_MIN and logits to LOGIT_REL_TOL), and
+    the int8 class maps against the float ones (AGREE_MIN)."""
+    p = load_config(WIDE_MOE_CONFIG)
+    model, tasks = build_model(p, device=dev, seed=0)
+    names = [tk.name for tk in tasks]
+    float_rows, float_launches = serve_rows(
+        model, names, (IMG, IMG), (1, 8), 21,
+        expected_serving_launches(12), "wide serving", 20)
+    rng = np.random.RandomState(21)
+    imgs = rng.randn(8, IMG, IMG, 3).astype(np.float32)
+    ref, _ = build_model({**p, "compute_dtype": "float32"}, device=dev,
+                         seed=0)
+    float_vs_plain = serving_vs_plain_and_f32(model, ref, names, imgs,
+                                              "wide serving")
+    del ref
+    torch.cuda.empty_cache()
+    qsd, q_err = quantize_expert_state_dict(model.state_dict(),
+                                            with_error=True)
+    qmodel, _ = build_model({**p, "expert_weights_int8": True}, device=dev,
+                            seed=0)
+    qmodel.load_state_dict(qsd, strict=True)
+    del qsd
+    int8_rows, int8_launches = serve_rows(
+        qmodel, names, (IMG, IMG), (1, 8), 21,
+        expected_serving_launches(12, int8=True), "wide int8 serving", 22)
+
+    def logits(m):
+        return InferenceSession(m, names, (IMG, IMG), buckets=(8,),
+                                device=dev).predict(imgs, "semseg")
+
+    q_logits, f_logits = logits(qmodel), logits(model)
+    before = dict(_build.launches)
+    set_use_kernels(qmodel, False)
+    qp_logits = logits(qmodel)
+    set_use_kernels(qmodel, True)
+    check(dict(_build.launches) == before,
+          "wide int8 plain run launched a kernel")
+    agree, rel_err = logit_agreement(q_logits, qp_logits)
+    f_agree, f_rel = logit_agreement(q_logits, f_logits)
+    check(agree >= AGREE_MIN and rel_err <= LOGIT_REL_TOL
+          and f_agree >= AGREE_MIN,
+          f"wide int8 serving at bucket 8: kernel vs plain class agreement "
+          f"{agree}, logit rel err {rel_err}; int8 vs float class agreement "
+          f"{f_agree}")
+    del model, qmodel
+    torch.cuda.empty_cache()
+    emit({"phase": "wide_serving", "config": WIDE_MOE_CONFIG,
+          "float": {**float_rows, "kernel_vs_plain": float_vs_plain},
+          "int8": {**int8_rows, "kernel_vs_plain": {
+              "bucket": 8, "class_map_agreement": agree,
+              "logit_rel_err": rel_err},
+              "int8_vs_float": {"bucket": 8, "class_map_agreement": f_agree,
+                                "logit_rel_err": f_rel},
+              "expert_quantization_error": q_err}})
+    return {"wide_serving": float_launches,
+            "wide_int8_serving": int8_launches}
+
+
+def vit_large_phase(dev):
+    """The dense ViT-large (LARGE_CONFIG: d 1024, 16 heads, hidden 4096,
+    NYUD semseg, 480 x 640, B=8, remat): a train step kernel against plain
+    (train_vs_plain), WIDE_STEPS timed steps that lower the loss with
+    launches counted per step, bucket-8 serving (launches per pass, kernel
+    against plain and f32); then the same weights with the fused dense
+    sublayer (use_pallas_ln_mlp: K5/K6 at 1024): a step against plain and
+    timed steps."""
+    p = load_config(LARGE_CONFIG)
+    hw = tuple(p["backbone_kwargs"]["img_size"])
+    model, tasks = build_model(p, device=dev, seed=0)
+    names = [tk.name for tk in tasks]
+    B = int(p["trBatch"])
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
+                            tasks, B, hw)
+    loss_fns, weights = build_loss_fns(p), p["loss_kwargs"]["loss_weights"]
+    out, paths = {}, {}
+    out["train_kernel_vs_plain"] = train_vs_plain(model, names, batch, p,
+                                                  dev, "vit_large")
+    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
+                "expert_ffn_fwd": 24, "expert_ffn_bwd": 12}
+    out["train_step"], paths["vit_large_train"] = timed_steps(
+        model, names, loss_fns, batch, dev, per_step, "vit_large train",
+        loss_falls=True, steps=WIDE_STEPS, weights=weights)
+    model.eval()
+    classes = next(tk.num_output for tk in tasks if tk.name == "semseg")
+    out["serving"], paths["vit_large_serving"] = serve_rows(
+        model, names, hw, (8,), classes, expected_serving_launches(12),
+        "vit_large serving", 23)
+    ref, _ = build_model({**p, "compute_dtype": "float32"}, device=dev,
+                         seed=0)
+    ref.load_state_dict(model.state_dict())
+    out["serving"]["kernel_vs_plain"] = serving_vs_plain_and_f32(
+        model, ref, names, np.random.RandomState(24).randn(
+            8, *hw, 3).astype(np.float32), "vit_large")
+    del ref
+    fused, _ = build_model({**p, "use_pallas_ln_mlp": True}, device=dev,
+                           seed=0)
+    fused.load_state_dict(model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    out["ln_mlp_train_kernel_vs_plain"] = train_vs_plain(
+        fused, names, batch, p, dev, "vit_large ln_mlp")
+    out["ln_mlp_train_step"], paths["vit_large_ln_mlp_train"] = timed_steps(
+        fused, names, loss_fns, batch, dev,
+        {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
+         "ln_mlp_fwd": 24, "ln_mlp_bwd": 12}, "vit_large ln_mlp train",
+        loss_falls=True, steps=WIDE_STEPS, weights=weights)
+    del fused, batch
+    torch.cuda.empty_cache()
+    emit({"phase": "vit_large", "config": LARGE_CONFIG, "image_hw": hw,
+          "batch": B, **out})
+    return paths
+
+
+def vit_tiny_phase(dev):
+    """The ViT-tiny MoE (TINY_CONFIG: d 192, 3 heads, E 16, K 2, expert
+    hidden 384, multi-gate, CityScapes semseg + depth, TAM level 0, remat,
+    128 x 256, B=4): a train step kernel against plain with routing
+    replayed (train_vs_plain), WIDE_STEPS timed steps that lower the loss
+    with launches counted per step, and semseg serving at bucket 4
+    (launches per pass, kernel against plain and f32)."""
+    p = load_config(TINY_CONFIG)
+    hw = tuple(p["backbone_kwargs"]["img_size"])
+    model, tasks = build_model(p, device=dev, seed=0)
+    names = [tk.name for tk in tasks]
+    B = int(p["trBatch"])
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
+                            tasks, B, hw)
+    out, paths = {}, {}
+    out["train_kernel_vs_plain"] = train_vs_plain(model, names, batch, p,
+                                                  dev, "vit_tiny")
+    T = len(names)
+    out["train_step"], paths["vit_tiny_train"] = timed_steps(
+        model, names, build_loss_fns(p), batch, dev,
+        {"flash_attention_fwd": 24 * T, "flash_attention_bwd": 12 * T,
+         "expert_ffn_fwd": 24 * T, "expert_ffn_bwd": 12 * T},
+        "vit_tiny train", loss_falls=True, steps=WIDE_STEPS,
+        weights=p["loss_kwargs"]["loss_weights"])
+    model.eval()
+    classes = next(tk.num_output for tk in tasks if tk.name == "semseg")
+    out["serving"], paths["vit_tiny_serving"] = serve_rows(
+        model, names, hw, (B,), classes, expected_serving_launches(12),
+        "vit_tiny serving", 25)
+    ref, _ = build_model({**p, "compute_dtype": "float32"}, device=dev,
+                         seed=0)
+    ref.load_state_dict(model.state_dict())
+    out["serving"]["kernel_vs_plain"] = serving_vs_plain_and_f32(
+        model, ref, names, np.random.RandomState(26).randn(
+            B, *hw, 3).astype(np.float32), "vit_tiny")
+    del model, ref, batch
+    torch.cuda.empty_cache()
+    emit({"phase": "vit_tiny", "config": TINY_CONFIG, "image_hw": hw,
+          "batch": B, **out})
+    return paths
+
+
+def wide_phase(dev, root: str):
+    """The wide paths in turn (wide_cli_phase, wide_serving_phase,
+    vit_large_phase, vit_tiny_phase); their launches by path."""
+    t0 = time.perf_counter()
+    paths = wide_cli_phase(dev, root)
+    torch.cuda.empty_cache()
+    for phase in (wide_serving_phase, vit_large_phase, vit_tiny_phase):
+        paths.update(phase(dev))
+    phase_s = time.perf_counter() - t0
+    check(phase_s < WIDE_PHASE_LIMIT_S,
+          f"wide phases took {phase_s:.1f} s (limit {WIDE_PHASE_LIMIT_S})")
+    emit({"phase": "wide_total", "seconds": phase_s})
+    return paths
+
+
+# the phases, in order, by the names `--only` takes: the kernels against
+# their plain versions, the flagship's paths, the CLI and the training
+# recipe on its tree, and the wider model families
+PHASES = ("kernels", "flagship", "cli", "wide")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated phases to run, of "
+                         f"{','.join(PHASES)} (default: all); a partial run "
+                         "prints no ok line")
+    args = ap.parse_args(argv)
+    only = [ph for ph in args.only.split(",") if ph]
+    if not set(only) <= set(PHASES) or not only:
+        ap.error(f"--only takes phases of {PHASES}, got {args.only!r}")
+    full = set(only) == set(PHASES)   # a partial run drops absent paths
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2498,74 +3016,106 @@ def main() -> int:
               f"{k}: ptxas reports spills {spilled} or serialised wgmma "
               f"{serial}")
 
-    attn = attention_phase(peaks, dev)
-    ffn = ffn_phase(peaks, dev)
-    attn_bwd = attention_bwd_phase(peaks, dev)
-    ffn_bwd = ffn_bwd_phase(peaks, dev)
-    ffn_q = ffn_q_phase(peaks, dev)
-    ln_fwd = ln_mlp_fwd_phase(peaks, dev)
-    ln_bwd = ln_mlp_bwd_phase(peaks, dev)
-    paths = {"serving": serving_phase(dev), "train": train_phase(dev),
-             "int8_serving": int8_serving_phase(dev)}
-    paths["ln_mlp_serving"], paths["ln_mlp_train"] = ln_mlp_path_phase(dev)
-    for path, phase in (("one_by_one", one_by_one_phase),
-                        ("accumulation", accumulation_phase),
-                        ("noisy_gate_train", noisy_gate_phase),
-                        ("eval_nodrop", eval_nodrop_phase)):
-        paths[path] = phase(dev)
+    cases = {}
+    if "kernels" in only:
+        cases = {"flash_attention_fwd": attention_phase(peaks, dev),
+                 "expert_ffn_fwd": ffn_phase(peaks, dev),
+                 "flash_attention_bwd": attention_bwd_phase(peaks, dev),
+                 "expert_ffn_bwd": ffn_bwd_phase(peaks, dev),
+                 "expert_ffn_q_fwd": ffn_q_phase(peaks, dev),
+                 "ln_mlp_fwd": ln_mlp_fwd_phase(peaks, dev),
+                 "ln_mlp_bwd": ln_mlp_bwd_phase(peaks, dev)}
+    paths = {}
+    if "flagship" in only:
+        paths.update(serving=serving_phase(dev), train=train_phase(dev),
+                     int8_serving=int8_serving_phase(dev))
+        paths["ln_mlp_serving"], paths["ln_mlp_train"] = \
+            ln_mlp_path_phase(dev)
+        for path, phase in (("one_by_one", one_by_one_phase),
+                            ("accumulation", accumulation_phase),
+                            ("noisy_gate_train", noisy_gate_phase),
+                            ("eval_nodrop", eval_nodrop_phase)):
+            paths[path] = phase(dev)
+            torch.cuda.empty_cache()
+        paths["dense_serving"], paths["dense_train"] = dense_phase(dev)
         torch.cuda.empty_cache()
-    paths["dense_serving"], paths["dense_train"] = dense_phase(dev)
-    torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
-        paths["cli"], paths["cli_synthetic_step"] = cli_phase(dev, root)
-        torch.cuda.empty_cache()
-        paths.update(recipe_phase(dev, root))
+        if "cli" in only:
+            paths["cli"], paths["cli_synthetic_step"] = cli_phase(dev, root)
+            torch.cuda.empty_cache()
+            paths.update(recipe_phase(dev, root))
+            torch.cuda.empty_cache()
+        if "wide" in only:
+            wide_root = os.path.join(root, "wide")
+            os.makedirs(wide_root)
+            paths.update(wide_phase(dev, wide_root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     kernels = []
-    # kernel, its TPU kernel, its phase's cases, its paths (the first is
-    # the one whose count is "launches")
+    # kernel, its TPU kernel, its paths (the first is the one whose count
+    # is "launches")
     train_paths = ("train", "ln_mlp_train", "one_by_one", "accumulation",
                    "noisy_gate_train", "dense_train", "cli", "recipe_moe",
                    "recipe_dense_tam")
+    wide_train = ("wide_cli", "wide_cli_ln_mlp", "wide_cli_synthetic_step",
+                  "wide_cli_ln_mlp_synthetic_step", "vit_large_train",
+                  "vit_tiny_train")
+    wide_serving = ("wide_serving", "wide_int8_serving", "vit_large_serving",
+                    "vit_tiny_serving")
     fwd_paths = train_paths[:1] + ("serving", "int8_serving",
                                    "ln_mlp_serving") + train_paths[1:] + (
         "eval_nodrop", "dense_serving", "recipe_dropout_eval")
     # the dropout step's training runs K1 and K2 only (the plain FFNs)
-    for kname, line, cases, on in (
-            ("flash_attention_fwd", "flash_attention.py:103", attn,
-             fwd_paths + ("recipe_dropout_train",)),
-            ("flash_attention_bwd", "flash_attention.py:125", attn_bwd,
-             train_paths + ("recipe_dropout_train",)),
-            ("expert_ffn_fwd", "expert_ffn.py:145", ffn, fwd_paths),
-            ("expert_ffn_bwd", "expert_ffn.py:203", ffn_bwd, train_paths),
-            ("ln_mlp_fwd", "ln_mlp.py:129", ln_fwd,
-             ("ln_mlp_train", "ln_mlp_serving")),
-            ("ln_mlp_bwd", "ln_mlp.py:183", ln_bwd, ("ln_mlp_train",)),
-            ("expert_ffn_q_fwd", "expert_ffn.py:334", ffn_q,
-             ("int8_serving",))):
-        by_path = {p: paths[p].get(kname, 0) for p in on}
+    for kname, line, on in (
+            ("flash_attention_fwd", "flash_attention.py:103",
+             fwd_paths + ("recipe_dropout_train",) + wide_train
+             + ("vit_large_ln_mlp_train",) + wide_serving),
+            ("flash_attention_bwd", "flash_attention.py:125",
+             train_paths + ("recipe_dropout_train",) + wide_train
+             + ("vit_large_ln_mlp_train",)),
+            ("expert_ffn_fwd", "expert_ffn.py:145",
+             fwd_paths + wide_train + wide_serving),
+            ("expert_ffn_bwd", "expert_ffn.py:203", train_paths + wide_train),
+            ("ln_mlp_fwd", "ln_mlp.py:129",
+             ("ln_mlp_train", "ln_mlp_serving", "wide_cli_ln_mlp",
+              "wide_cli_ln_mlp_synthetic_step", "vit_large_ln_mlp_train")),
+            ("ln_mlp_bwd", "ln_mlp.py:183",
+             ("ln_mlp_train", "wide_cli_ln_mlp",
+              "wide_cli_ln_mlp_synthetic_step", "vit_large_ln_mlp_train")),
+            ("expert_ffn_q_fwd", "expert_ffn.py:334",
+             ("int8_serving", "wide_int8_serving"))):
+        by_path = {p: paths[p].get(kname, 0) for p in on
+                   if full or p in paths}
         for p, n in by_path.items():
             check(n > 0, f"{kname} was not launched on the {p} path")
-        main_case = cases[0]
+        if not full and kname not in cases:
+            continue
+        kcases = cases[kname]
+        main_case = kcases[0]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"m3vit_tpu_torch/csrc/{kname}.cu",
-            "replaces": f"m3vit_tpu/ops/{line}", "launches": by_path[on[0]],
+            "replaces": f"m3vit_tpu/ops/{line}",
+            "launches": by_path.get(on[0], 0),
             "launches_by_path": by_path,
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "max_abs_err": max(c["max_abs_err"] for c in kcases),
             **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
-            "cases": cases,
+            "cases": kcases,
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    emit({"kernels": kernels})
+    if kernels:
+        emit({"kernels": kernels})
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
               file=sys.stderr)
         return 1
+    if not full:
+        print(f"chip_smoke: partial run ({','.join(only)}): no ok line",
+              file=sys.stderr)
+        return 0
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -45,7 +45,7 @@ extern "C" long long expert_ffn_bwd_scratch(int E, int Ct, int D, int Hd,
 // bytes; ks splits the weight gradients' token range; the hidden pass, dh
 // and the weight gradients launch on the grids given; sms is the SM count
 // (the sums' grid).  All contiguous and 16-byte aligned;
-// D in {128, 384}, Hd % 64 == 0.  Returns a cudaError_t;
+// D in {128, 192, 384, 768, 1024}, Hd % 64 == 0.  Returns a cudaError_t;
 // cudaErrorInvalidValue for a shape not taken or a tensor map the CUDA
 // driver refuses.
 extern "C" int expert_ffn_bwd(const void* h, const void* w1, const void* b1,
@@ -55,7 +55,8 @@ extern "C" int expert_ffn_bwd(const void* h, const void* w1, const void* b1,
                               int ks, int hidden_grid, int dh_grid,
                               int weights_grid, int sms, void* stream) {
   const Grids grid{hidden_grid, dh_grid, weights_grid};
-  if ((D != 128 && D != 384) || Hd % 64 != 0 || ks < 1 || E < 1 ||
+  if ((D != 128 && D != 192 && D != 384 && D != 768 && D != 1024) ||
+      Hd % 64 != 0 || ks < 1 || E < 1 ||
       Ct < 1 || sms < 1 || !grid.valid())
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -27,10 +27,13 @@
 // 2. K3's persistent wgmma forward (ffn_fwd_wgmma.cuh), unchanged, on the
 //    scratch banks: its numerics and its bits, which expert_ffn_fwd gives
 //    on the same bf16 banks.
+// At D in {768, 1024} step 2 is the two-pass route (ffn_fwd_gemm.cuh) on
+// the bf16 banks, its hidden activation in the same scratch after them.
 // The first design dequantized every chunk again in each 64-token tile
 // (65 times an expert at bucket 8) on the SMs that ran the products;
 // widening inside K3's ring would need registers its consumers do not have.
 
+#include "ffn_fwd_gemm.cuh"
 #include "ffn_fwd_wgmma.cuh"
 
 namespace {
@@ -89,10 +92,17 @@ cudaError_t dequant(const void* q1, const void* s1, const void* q2,
 
 }  // namespace
 
-// Bytes of scratch expert_ffn_q_fwd and expert_ffn_q_dequant take: both
-// banks in bf16.
-extern "C" long long expert_ffn_q_fwd_scratch(int E, int D, int Hd) {
-  return 2 * bank_elems(E, D, Hd) * int64_t(sizeof(bf16));
+// Bytes of the bf16 banks, both, in the scratch.
+inline size_t banks_bytes(int E, int D, int Hd) {
+  return ffn2p::align256(2 * size_t(bank_elems(E, D, Hd)) * sizeof(bf16));
+}
+
+// Bytes of scratch expert_ffn_q_fwd takes: both banks in bf16, and on the
+// two-pass route (D in {768, 1024}) the hidden activation [E, Ct, Hd] bf16
+// after them.  expert_ffn_q_dequant takes the banks' part (Ct = 0).
+extern "C" long long expert_ffn_q_fwd_scratch(int E, int Ct, int D, int Hd) {
+  return (long long)(banks_bytes(E, D, Hd) +
+                     (ffn2p::wide(D) ? ffn2p::hidden_bytes(E, Ct, Hd) : 0));
 }
 
 // q1 [E, Hd, D] int8, s1 [E, Hd] f32, q2 [E, D, Hd] int8, s2 [E, D] f32,
@@ -119,13 +129,24 @@ extern "C" int expert_ffn_q_fwd(const void* h, const void* q1, const void* s1,
                                 int E, int Ct, int D, int Hd, void* stream) {
   using namespace ffnfwd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 128 && D != 384) return int(cudaErrorInvalidValue);
+  if (D != 128 && D != 192 && D != 384 && !ffn2p::wide(D))
+    return int(cudaErrorInvalidValue);
   cudaError_t err = dequant(q1, s1, q2, s2, scratch, E, D, Hd, s);
   if (err != cudaSuccess) return int(err);
   const bf16* w1 = static_cast<const bf16*>(scratch);
   const bf16* w2 = w1 + bank_elems(E, D, Hd);
+  if (ffn2p::wide(D))
+    return int(ffn2p::launch(
+        static_cast<const bf16*>(h), w1, static_cast<const float*>(b1), w2,
+        static_cast<const float*>(b2), static_cast<bf16*>(out), nullptr,
+        reinterpret_cast<bf16*>(static_cast<uint8_t*>(scratch) +
+                                banks_bytes(E, D, Hd)),
+        E, Ct, D, Hd, s));
   const Args args{static_cast<const float*>(b1), static_cast<const float*>(b2),
                   static_cast<bf16*>(out), nullptr, nullptr, E, Ct, Hd, 0.f};
-  return int(D == 128 ? launch<128, false>(h, w1, w2, args, s)
-                      : launch<384, false>(h, w1, w2, args, s));
+  switch (D) {
+    case 128: return int(launch<128, false>(h, w1, w2, args, s));
+    case 192: return int(launch<192, false>(h, w1, w2, args, s));
+    default: return int(launch<384, false>(h, w1, w2, args, s));
+  }
 }

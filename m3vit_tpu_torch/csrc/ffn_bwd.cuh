@@ -58,7 +58,7 @@ using hopper::bf16;
 #endif
 
 constexpr int BK = FFN_BWD_KSTEP;   // reduction depth of one stage
-constexpr int D_MAX = 384;          // the widest model dimension taken
+constexpr int D_MAX = 1024;         // the widest model dimension taken
 constexpr int BOX = 64 * BK * 2;    // bytes of one [64, 64] bf16 box
 constexpr int WGS = 2;              // consumer warpgroups of a CTA
 constexpr int BM = 64 * WGS;        // output rows of a tile: 64 a warpgroup
@@ -324,10 +324,19 @@ ffn_bwd_hidden_kernel(const __grid_constant__ CUtensorMap h_map,
 // ---- 2./3. the GEMM template ---------------------------------------------
 // C[M, N] = A B per (problem p, expert e, token split s), over the K
 // columns (TA = 0: A [M, K] K-major, rows = tokens) or the K rows (TA = 1:
-// A^T with A stored [K, M]) of A; B is always stored [K, N] (MN-major).
-// Tiles of BM x BN: N tiles fastest, then M tiles, then (e, s); problem
-// 0's tiles, then problem 1's.  Split s reduces over the k-steps
-// [nk s / ks, nk (s + 1) / ks) and writes out[p] + s * E * M * N.
+// A^T with A stored [K, M]) of A, and over the K rows (TB = 1: B stored
+// [K, N], MN-major) or the K columns (TB = 0: B stored [N, K], K-major, the
+// torch layout of a weight [out, in]) of B.  Tiles of BM x BN: N tiles
+// fastest, then M tiles, then (e, s); problem 0's tiles, then problem 1's.
+// Split s reduces over the k-steps [nk s / ks, nk (s + 1) / ks) and writes
+// out[p] + s * E * M * N.  The epilogue stores the f32 sums as they are
+// (the backward's products), or adds the bias [E, N] first and then either
+// applies the GELU (the two-pass forward's hidden pass) or not (its output
+// pass), the latter optionally adding the bf16-rounded result to a residual
+// [E, M, N] in f32 (K5's, ffn_fwd_gemm.cuh).  Rows and columns past M and N
+// are loaded as zeros and never stored.
+enum Epilogue { EPI_STORE, EPI_BIAS_GELU, EPI_BIAS, EPI_BIAS_RESIDUAL };
+
 struct GemmProblem {
   void* out;   // [ks, E, M, N] of Out
   int M, N;
@@ -335,6 +344,8 @@ struct GemmProblem {
 struct GemmArgs {
   GemmProblem p[2];
   int problems, E, K, ks;
+  const float* bias;       // [E, N] f32: EPI_BIAS*
+  const bf16* residual;    // [E, M, N]: EPI_BIAS_RESIDUAL
 };
 
 template <int BN_, int STAGES_>
@@ -381,13 +392,13 @@ struct GemmTile {
   }
 };
 
-template <int TA, class C, typename Out>
+template <int TA, int TB, int EPI, class C, typename Out>
 __global__ void __launch_bounds__(THREADS, 1)
-ffn_bwd_gemm_kernel(const __grid_constant__ CUtensorMap a0_map,
-                    const __grid_constant__ CUtensorMap b0_map,
-                    const __grid_constant__ CUtensorMap a1_map,
-                    const __grid_constant__ CUtensorMap b1_map,
-                    const GemmArgs args) {
+ffn_gemm_kernel(const __grid_constant__ CUtensorMap a0_map,
+                const __grid_constant__ CUtensorMap b0_map,
+                const __grid_constant__ CUtensorMap a1_map,
+                const __grid_constant__ CUtensorMap b1_map,
+                const GemmArgs args) {
   constexpr int BN = C::BN, STAGES = C::STAGES, WARPS = CONSUMERS / 32;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1k(smem_raw);
@@ -416,9 +427,14 @@ ffn_bwd_gemm_kernel(const __grid_constant__ CUtensorMap a0_map,
               hopper::tma_load_3d(s + C::A + w * BOX, a_map, &full[st], k,
                                   T.m0 + 64 * w, T.e);
           }
-          for (int c = 0; c < BN / 64; ++c)
-            hopper::tma_load_3d(s + C::B + c * BOX, b_map, &full[st],
-                                T.n0 + 64 * c, k, T.e);
+          for (int c = 0; c < BN / 64; ++c) {
+            if (TB)
+              hopper::tma_load_3d(s + C::B + c * BOX, b_map, &full[st],
+                                  T.n0 + 64 * c, k, T.e);
+            else   // BN rows of B, one after another: a [BN, 64] K-major tile
+              hopper::tma_load_3d(s + C::B + c * BOX, b_map, &full[st], k,
+                                  T.n0 + 64 * c, T.e);
+          }
         }
       }
     }
@@ -440,10 +456,11 @@ ffn_bwd_gemm_kernel(const __grid_constant__ CUtensorMap a0_map,
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint8_t* a = s + C::A + wg * BOX;
-        mma<TA, 1>(acc,
-                   TA ? hopper::desc_mn<64>(a, 0, kk)
-                      : hopper::desc_k<64>(a, kk),
-                   hopper::desc_mn_boxes(s + C::B, kk));
+        mma<TA, TB>(acc,
+                    TA ? hopper::desc_mn<64>(a, 0, kk)
+                       : hopper::desc_k<64>(a, kk),
+                    TB ? hopper::desc_mn_boxes(s + C::B, kk)
+                       : hopper::desc_k<64>(s + C::B, kk));
       }
       hopper::wgmma_commit();
       consume_end<STAGES>(empty, it, i);
@@ -452,8 +469,8 @@ ffn_bwd_gemm_kernel(const __grid_constant__ CUtensorMap a0_map,
     hopper::fence_regs(acc);
 
     const GemmProblem P = T.p ? args.p[1] : args.p[0];
-    Out* out = static_cast<Out*>(P.out) +
-               (int64_t(T.s) * args.E + T.e) * int64_t(P.M) * P.N;
+    const int64_t slab = (int64_t(T.s) * args.E + T.e) * int64_t(P.M) * P.N;
+    Out* out = static_cast<Out*>(P.out) + slab;
     const int row0 = T.m0 + 64 * wg + 16 * (warp % 4) + lane / 4;
     const int cq = 2 * (lane % 4);
 #pragma unroll
@@ -463,9 +480,26 @@ ffn_bwd_gemm_kernel(const __grid_constant__ CUtensorMap a0_map,
 #pragma unroll
       for (int nb = 0; nb < BN / 8; ++nb) {
         const int col = T.n0 + 8 * nb + cq;
-        if (col < P.N)
-          store2(out + int64_t(row) * P.N + col, acc[4 * nb + 2 * r],
-                 acc[4 * nb + 2 * r + 1]);
+        if (col >= P.N) continue;
+        float x = acc[4 * nb + 2 * r], y = acc[4 * nb + 2 * r + 1];
+        if constexpr (EPI != EPI_STORE) {
+          const float2 b = *reinterpret_cast<const float2*>(
+              args.bias + int64_t(T.e) * P.N + col);
+          x += b.x;
+          y += b.y;
+        }
+        if constexpr (EPI == EPI_BIAS_GELU) {
+          x = ffn::gelu(x);
+          y = ffn::gelu(y);
+        }
+        if constexpr (EPI == EPI_BIAS_RESIDUAL) {   // x + bf16(MLP), in f32
+          const float2 xr = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  args.residual + slab + int64_t(row) * P.N + col));
+          x = xr.x + __bfloat162float(__float2bfloat16(x));
+          y = xr.y + __bfloat162float(__float2bfloat16(y));
+        }
+        store2(out + int64_t(row) * P.N + col, x, y);
       }
     }
   }
@@ -590,14 +624,14 @@ inline CoreScratch carve_core(uint8_t* base, int E, int Ct, int D, int Hd,
   return c;
 }
 
-template <class C, int TA, typename Out>
+template <class C, int TA, typename Out, int TB = 1, int EPI = EPI_STORE>
 cudaError_t launch_gemm(const CUtensorMap& a0, const CUtensorMap& b0,
                         const CUtensorMap& a1, const CUtensorMap& b1,
                         const GemmArgs& args, int grid, cudaStream_t stream) {
-  cudaError_t err = ffn::allow_smem(ffn_bwd_gemm_kernel<TA, C, Out>,
+  cudaError_t err = ffn::allow_smem(ffn_gemm_kernel<TA, TB, EPI, C, Out>,
                                     C::BYTES);
   if (err != cudaSuccess) return err;
-  ffn_bwd_gemm_kernel<TA, C, Out><<<grid, THREADS, C::BYTES, stream>>>(
+  ffn_gemm_kernel<TA, TB, EPI, C, Out><<<grid, THREADS, C::BYTES, stream>>>(
       a0, b0, a1, b1, args);
   return cudaGetLastError();
 }

@@ -38,6 +38,9 @@
 //   statistics, two-pass variance, eps inside the rsqrt) into bf16 h under
 //   the same swizzle before the first product.
 // No atomics and no cross-CTA sums: two runs give the same bits.
+// Widths: D in {128, 192, 384}; at 768 and 1024 the accumulator alone
+// would need 384 and 512 registers a thread, and those widths take the
+// two-pass route (ffn_fwd_gemm.cuh).
 //
 // The register budget is the hard part, and ptxas's handling of it brittle:
 // code after the consumers' tile loop, descriptors or addresses hoisted out
@@ -98,21 +101,7 @@ struct Args {
   float eps;
 };
 
-// GELU with the TPU kernel's erf (m3vit_tpu/ops/expert_ffn.py:_erf_approx,
-// Abramowitz-Stegun 7.1.26, |error| < 1.5e-7) on the hardware reciprocal
-// and exp2: 0.5 x (1 + sign(x) erf(|x| / sqrt 2)), in f32.
-__device__ __forceinline__ float gelu(float x) {
-  const float z = fabsf(x) * ffn::SQRT1_2;
-  const float t = __fdividef(1.f, fmaf(0.3275911f, z, 1.f));
-  const float poly =
-      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f),
-                               1.421413741f),
-                       -0.284496736f),
-               0.254829592f);
-  const float erf_z = 1.f - poly * __expf(-z * z);
-  const float half = 0.5f * x;
-  return x >= 0.f ? half + half * erf_z : half - half * erf_z;
-}
+using ffn::gelu;
 
 // `d` through a register the compiler cannot see into: descriptors derived
 // from it by constant offsets are formed where they are used, not hoisted
@@ -160,21 +149,27 @@ __device__ __forceinline__ void st_shared(uint32_t a, uint32_t v) {
 // K5's prologue on this warpgroup's 64 rows of the token tile (NB boxes of
 // x as TMA left them): h = bf16((x - mean) rstd gamma + beta) in place, the
 // statistics in f32 as the TPU kernel's _ln_rows (two-pass variance, eps
-// inside the rsqrt).  Two threads a row, each over every other box.  Rows
-// past the end are zeros and give h = beta (never stored).  The loops stay
-// rolled: unrolled, the compiler loads every chunk (and every gamma and
-// beta) ahead, into registers it does not have.
+// inside the rsqrt).  Two threads a row: with an even box count each takes
+// every other box; with an odd one (D = 192) each takes one 32-column half
+// of every box (16-byte chunks 4q .. 4q + 3).  (The halves for every count
+// made ptxas spill at D = 384.)  Rows past the end are zeros and give h =
+// beta (never stored).  The loops stay rolled: unrolled, the compiler loads
+// every chunk (and every gamma and beta) ahead, into registers it does not
+// have.
 template <int D>
 __device__ __forceinline__ void ln_in_place(uint8_t* hs, const Args& args,
                                             int wtid) {
   constexpr int NB = D / 64;
-  static_assert(NB % 2 == 0, "two threads a row, a box each in turn");
+  constexpr bool HALVES = NB % 2 != 0;
   const int r = wtid / 2, q = wtid % 2;
+  // boxes i0, i0 + di, ... and chunks c0 .. c1 - 1 of each
+  const int i0 = HALVES ? 0 : q, di = HALVES ? 1 : 2;
+  const int c0 = HALVES ? 4 * q : 0, c1 = HALVES ? 4 * q + 4 : 8;
   float sum = 0.f;
 #pragma unroll 1
-  for (int i = q; i < NB; i += 2)
+  for (int i = i0; i < NB; i += di)
 #pragma unroll 1
-    for (int c = 0; c < 8; ++c) {
+    for (int c = c0; c < c1; ++c) {
       const uint4 v = *reinterpret_cast<const uint4*>(swz(hs + i * BOX, r, c));
       const uint32_t* p = reinterpret_cast<const uint32_t*>(&v);
 #pragma unroll
@@ -184,9 +179,9 @@ __device__ __forceinline__ void ln_in_place(uint8_t* hs, const Args& args,
   const float mu = sum / D;
   float sq = 0.f;
 #pragma unroll 1
-  for (int i = q; i < NB; i += 2)
+  for (int i = i0; i < NB; i += di)
 #pragma unroll 1
-    for (int c = 0; c < 8; ++c) {
+    for (int c = c0; c < c1; ++c) {
       const uint4 v = *reinterpret_cast<const uint4*>(swz(hs + i * BOX, r, c));
       const uint32_t* p = reinterpret_cast<const uint32_t*>(&v);
 #pragma unroll
@@ -198,9 +193,9 @@ __device__ __forceinline__ void ln_in_place(uint8_t* hs, const Args& args,
   sq += __shfl_xor_sync(0xffffffffu, sq, 1);
   const float rs = rsqrtf(sq / D + args.eps);
 #pragma unroll 1
-  for (int i = q; i < NB; i += 2)
+  for (int i = i0; i < NB; i += di)
 #pragma unroll 1
-    for (int c = 0; c < 8; ++c) {
+    for (int c = c0; c < c1; ++c) {
       uint4* at = reinterpret_cast<uint4*>(swz(hs + i * BOX, r, c));
       uint4 v = *at;
       uint32_t* p = reinterpret_cast<uint32_t*>(&v);
@@ -451,15 +446,7 @@ ffn_fwd_kernel(const __grid_constant__ CUtensorMap h_map,
   }
 }
 
-// The SM count of the current device, read once per device.
-inline int sm_count() {
-  static int counts[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (counts[dev] == 0)
-    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
-  return counts[dev];
-}
+using ffn::sm_count;
 
 // h [E, Ct, D] (K5: x [Ct, D], E = 1), w1 [E, Hd, D], w2 [E, D, Hd] bf16,
 // contiguous and 16-byte aligned; Hd % 32 == 0.  One CTA an SM, at most

@@ -40,21 +40,15 @@ using namespace ffnbwd;
 
 namespace {
 
-constexpr int TR = 64;   // rows per CTA of the pre-pass and the dx pass
-
-template <int D>
-__global__ void __launch_bounds__(ffn::THREADS)
-ln_prepass_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                  const float* __restrict__ beta, bf16* __restrict__ h,
-                  float* __restrict__ mean, float* __restrict__ rstd, int S,
-                  float eps) {
-  const int m0 = blockIdx.x * TR, rows = min(TR, S - m0);
-  ffn::ln_tile<D>(h + int64_t(m0) * D, D, x + int64_t(m0) * D, rows, rows,
-                  gamma, beta, eps, mean + m0, rstd + m0, threadIdx.x);
-}
+constexpr int TR = ffn::LN_ROWS;   // rows per CTA of the pre-pass and dx pass
+using ffn::ln_prepass_kernel;
 
 // dx and this tile's dgamma / dbeta partials [2, D], each column summed
-// over the tile's rows warp by warp, then over the warps in order.
+// over the tile's rows warp by warp, then over the warps in order (dgamma's
+// partials first, then dbeta's, through one [warps, D] buffer: 32 KB of
+// static shared memory at D = 1024).  gamma is read where it is used, not
+// held in registers beside the row's 4 D / 64 values and the 4 D / 64
+// column sums a lane carries.
 template <int D>
 __global__ void __launch_bounds__(ffn::THREADS)
 ln_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
@@ -62,21 +56,16 @@ ln_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
              const float* __restrict__ mean, const float* __restrict__ rstd,
              bf16* __restrict__ dx, float* __restrict__ pgb, int S) {
   constexpr int PL = D / 64;  // column pairs per lane
-  __shared__ float red[ffn::WARPS][2][D];
+  __shared__ float red[ffn::WARPS][D];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m0 = blockIdx.x * TR;
-  float pg[2 * PL], pb[2 * PL], gm[2 * PL];
+  float pg[2 * PL], pb[2 * PL];
 #pragma unroll
-  for (int i = 0; i < PL; ++i) {
-    const int c = 2 * (lane + 32 * i);
-    gm[2 * i] = gamma[c];
-    gm[2 * i + 1] = gamma[c + 1];
-    pg[2 * i] = pg[2 * i + 1] = pb[2 * i] = pb[2 * i + 1] = 0.f;
-  }
+  for (int i = 0; i < 2 * PL; ++i) pg[i] = pb[i] = 0.f;
   for (int r = warp; r < TR && m0 + r < S; r += ffn::WARPS) {
     const int64_t row = m0 + r;
     const float mu = mean[row], rs = rstd[row];
-    float xh[2 * PL], d[2 * PL], dhg[2 * PL];
+    float xh[2 * PL], d[2 * PL];
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int i = 0; i < PL; ++i) {
@@ -84,15 +73,16 @@ ln_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
       const float2 xv = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(x + row * D + c));
       const float2 dv = *reinterpret_cast<const float2*>(dh + row * D + c);
+      const float2 gm = __ldg(reinterpret_cast<const float2*>(gamma + c));
       xh[2 * i] = (xv.x - mu) * rs;
       xh[2 * i + 1] = (xv.y - mu) * rs;
       d[2 * i] = dv.x;
       d[2 * i + 1] = dv.y;
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
-        dhg[2 * i + k] = d[2 * i + k] * gm[2 * i + k];
-        s1 += dhg[2 * i + k];
-        s2 += dhg[2 * i + k] * xh[2 * i + k];
+        const float dhg = d[2 * i + k] * (k ? gm.y : gm.x);
+        s1 += dhg;
+        s2 += dhg * xh[2 * i + k];
         pg[2 * i + k] += d[2 * i + k] * xh[2 * i + k];
         pb[2 * i + k] += d[2 * i + k];
       }
@@ -108,25 +98,28 @@ ln_dx_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
       const int c = 2 * (lane + 32 * i);
       const float2 gv = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(gr + row * D + c));
+      const float2 gm = __ldg(reinterpret_cast<const float2*>(gamma + c));
       *reinterpret_cast<__nv_bfloat162*>(dx + row * D + c) =
           __floats2bfloat162_rn(
-              gv.x + rs * (dhg[2 * i] - m1 - xh[2 * i] * m2),
-              gv.y + rs * (dhg[2 * i + 1] - m1 - xh[2 * i + 1] * m2));
+              gv.x + rs * (d[2 * i] * gm.x - m1 - xh[2 * i] * m2),
+              gv.y + rs * (d[2 * i + 1] * gm.y - m1 - xh[2 * i + 1] * m2));
     }
   }
 #pragma unroll
-  for (int i = 0; i < PL; ++i) {
-    const int c = 2 * (lane + 32 * i);
-    red[warp][0][c] = pg[2 * i];
-    red[warp][0][c + 1] = pg[2 * i + 1];
-    red[warp][1][c] = pb[2 * i];
-    red[warp][1][c + 1] = pb[2 * i + 1];
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < 2 * D; c += ffn::THREADS) {
-    float sum = 0.f;
-    for (int w = 0; w < ffn::WARPS; ++w) sum += red[w][c / D][c % D];
-    pgb[int64_t(blockIdx.x) * 2 * D + c] = sum;
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int i = 0; i < PL; ++i) {
+      const int c = 2 * (lane + 32 * i);
+      red[warp][c] = k ? pb[2 * i] : pg[2 * i];
+      red[warp][c + 1] = k ? pb[2 * i + 1] : pg[2 * i + 1];
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < D; c += ffn::THREADS) {
+      float sum = 0.f;
+      for (int w = 0; w < ffn::WARPS; ++w) sum += red[w][c];
+      pgb[(int64_t(blockIdx.x) * 2 + k) * D + c] = sum;
+    }
+    __syncthreads();   // red is written again (or the CTA ends)
   }
 }
 
@@ -192,7 +185,7 @@ extern "C" long long ln_mlp_bwd_scratch(int S, int D, int Hd, int ks) {
 // bytes; ks splits the weight gradients' token range; the hidden pass, dh
 // and the weight gradients launch on the grids given; sms is the SM count
 // (the sums' grid).  All contiguous and 16-byte aligned;
-// D in {128, 384}, Hd % 64 == 0.  Returns a
+// D in {128, 192, 384, 768, 1024}, Hd % 64 == 0.  Returns a
 // cudaError_t; cudaErrorInvalidValue for a shape not taken.
 extern "C" int ln_mlp_bwd(const void* x, const void* gamma, const void* beta,
                           const void* w1, const void* b1, const void* w2,
@@ -220,8 +213,14 @@ extern "C" int ln_mlp_bwd(const void* x, const void* gamma, const void* beta,
   switch (D) {
     case 128:
       return int(args(std::integral_constant<int, 128>{}));
+    case 192:
+      return int(args(std::integral_constant<int, 192>{}));
     case 384:
       return int(args(std::integral_constant<int, 384>{}));
+    case 768:
+      return int(args(std::integral_constant<int, 768>{}));
+    case 1024:
+      return int(args(std::integral_constant<int, 1024>{}));
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -4,7 +4,11 @@ and backward (K4), and the int8-weight forward (K7).
 Counterpart of ``m3vit_tpu/ops/expert_ffn.py`` (``fused_expert_ffn`` :309
 and its ``custom_vjp`` :314-331, ``_ffn_forward`` :158, ``_ffn_kernel`` :145,
 ``_gelu_and_grad`` :196, ``_ffn_bwd_kernel`` :203, ``_ffn_backward`` :254,
-``fused_dense_mlp`` :50 and the ``make_pallas_ffn_fn`` hook :400).  Weights
+``fused_dense_mlp`` :50 and the ``make_pallas_ffn_fn`` hook :400).  The
+TPU kernels take any model width d (each block holds the whole of d); the
+forward kernels here take d in ``FUSED_DIMS`` on the fused route and d in
+``TWO_PASS_DIMS`` on the two-pass route (``ffn_route``), the backward all
+of ``MODEL_DIMS``.  Weights
 take the torch layout [E, out, in]: w1 [E, H, d], w2 [E, d, H] (the JAX
 package keeps [E, in, out]).  ``fused_expert_ffn`` is a
 ``torch.autograd.Function``: on a CUDA tensor its forward launches
@@ -42,7 +46,14 @@ NAME = "expert_ffn_fwd"
 BWD_NAME = "expert_ffn_bwd"
 Q_NAME = "expert_ffn_q_fwd"
 DEQUANT_SYMBOL = "expert_ffn_q_dequant"   # K7's first pass alone
-MODEL_DIMS = (128, 384)
+# the model widths the forward kernels (K3, K5, K7) take, by route: the fused
+# forward keeps a [64, d] f32 accumulator per consumer warpgroup in
+# registers (csrc/ffn_fwd_wgmma.cuh), which fits up to d = 384; wider
+# models write the hidden activation to a bf16 scratch and run two GEMMs
+# (csrc/ffn_fwd_gemm.cuh).  The backward kernels (K4, K6) take all of them
+FUSED_DIMS = (128, 192, 384)
+TWO_PASS_DIMS = (768, 1024)
+MODEL_DIMS = FUSED_DIMS + TWO_PASS_DIMS
 HIDDEN_QUANTUM = 64
 # the backward's tiles (csrc/ffn_bwd.cuh takes them from the build)
 BWD_TILE_M, BWD_TILE_N, BWD_HIDDEN_TILE, BWD_KSTEP = (
@@ -125,6 +136,21 @@ def fused_dense_mlp(x, w1, b1, w2, b2, *, use_kernels: bool = True):
     return out.reshape(x.shape)
 
 
+def ffn_route(d: int, hidden: int) -> str:
+    """The forward route the kernels take for model width `d` and `hidden`
+    units: "fused" or "two_pass".  Raises ValueError for a shape no kernel
+    takes."""
+    if hidden % HIDDEN_QUANTUM or hidden < HIDDEN_QUANTUM:
+        raise ValueError(f"hidden {hidden} is not a positive multiple of "
+                         f"{HIDDEN_QUANTUM}")
+    if d in FUSED_DIMS:
+        return "fused"
+    if d in TWO_PASS_DIMS:
+        return "two_pass"
+    raise ValueError(f"model width {d} not taken by the FFN kernels (d in "
+                     f"{MODEL_DIMS})")
+
+
 def _check(name, h, tensors, weight_dtype=torch.bfloat16):
     """Raises on what the kernels do not take; returns (E, Ct, d, Hd).
     h and g are bf16, w1 and w2 `weight_dtype`."""
@@ -146,10 +172,11 @@ def _check(name, h, tensors, weight_dtype=torch.bfloat16):
     if [t.dtype for t in bf] != want:
         raise ValueError(f"{name} takes h/w1/w2/g as {want}, got "
                          f"{[t.dtype for t in bf]}")
-    if d not in MODEL_DIMS or Hd % HIDDEN_QUANTUM:
+    try:
+        ffn_route(d, Hd)
+    except ValueError as e:
         raise ValueError(f"{name}: h {tuple(h.shape)} x hidden {Hd} "
-                         f"unsupported (d in {MODEL_DIMS}, hidden a multiple "
-                         f"of {HIDDEN_QUANTUM})")
+                         f"unsupported: {e}") from None
     for t in bf:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: h/w1/w2/g must be contiguous and "
@@ -165,19 +192,32 @@ def _f32_aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _scratch(name: str, device, *shape: int):
+    """(tensor, pointer) of the per-call scratch kernel `name` needs for
+    `shape`, or (None, 0) when it needs none."""
+    n = _scratch_bytes(name, *shape)
+    if not n:
+        return None, 0
+    t = torch.empty(n, dtype=torch.uint8, device=device)
+    return t, t.data_ptr()
+
+
 def expert_ffn_fwd(h, w1, b1, w2, b2) -> torch.Tensor:
     """Launches the CUDA kernel; raises on a tensor or shape it does not
-    take.  Biases are read in f32 (cast here when given otherwise)."""
+    take.  Biases are read in f32 (cast here when given otherwise).  On the
+    two-pass route the hidden activation [E, C, H] bf16 lives in a scratch
+    for this call."""
     E, Ct, d, Hd = _check(NAME, h, {"w1": w1, "b1": b1, "w2": w2, "b2": b2})
     b1, b2 = (_f32_aligned(t) for t in (b1, b2))
     out = torch.empty_like(h)
     if E * Ct == 0:
         return out
-    fn = _build.bind(NAME, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    scratch, ptr = _scratch(NAME, h.device, E, Ct, d, Hd)
+    fn = _build.bind(NAME, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p])
     err = _build.call(
         fn, h.device, h.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), E, Ct, d, Hd)
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), ptr, E, Ct, d, Hd)
     _build.check(err, NAME, f"h {tuple(h.shape)}, hidden {Hd}")
     _build.count_launch(NAME)
     return out
@@ -221,8 +261,8 @@ def bwd_plan(E: int, Ct: int, d: int, Hd: int, sms: int,
 
 @functools.lru_cache(maxsize=None)
 def _scratch_bytes(name: str, *shape: int) -> int:
-    """Bytes of scratch the backward kernel `name` needs (its C
-    ``<name>_scratch``), by shape."""
+    """Bytes of scratch kernel `name` needs (its C ``<name>_scratch``), by
+    shape."""
     fn = _build.bind(name, [ctypes.c_int] * len(shape),
                      symbol=f"{name}_scratch", restype=ctypes.c_longlong)
     return int(fn(*shape))
@@ -295,9 +335,10 @@ def quantized_expert_ffn(h, w1, s1, b1, w2, s2, b2, *,
 
 def expert_ffn_q_fwd(h, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
     """Launches the int8-weight CUDA kernel (a dequantizing pass into a bf16
-    scratch, then K3's forward on it); raises on a tensor or shape it does
-    not take.  Scales and biases are read in f32.  The scratch lives for
-    this call only: the banks stay int8 between calls."""
+    scratch, then K3's forward on it, on K3's route for d); raises on a
+    tensor or shape it does not take.  Scales and biases are read in f32.
+    The scratch lives for this call only: the banks stay int8 between
+    calls."""
     E, Ct, d, Hd = _check(Q_NAME, h, {"w1": w1, "b1": b1, "w2": w2,
                                       "b2": b2, "s1": s1, "s2": s2},
                           weight_dtype=torch.int8)
@@ -306,8 +347,7 @@ def expert_ffn_q_fwd(h, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
     out = torch.empty_like(h)
     if E * Ct == 0:
         return out
-    scratch = torch.empty(_scratch_bytes(Q_NAME, E, d, Hd),
-                          dtype=torch.uint8, device=h.device)
+    scratch, _ = _scratch(Q_NAME, h.device, E, Ct, d, Hd)
     fn = _build.bind(Q_NAME, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                              + [ctypes.c_void_p])
     err = _build.call(

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from m3vit_tpu_torch.ops import _build
-from m3vit_tpu_torch.ops.expert_ffn import (_check, _f32_aligned,
+from m3vit_tpu_torch.ops.expert_ffn import (_check, _f32_aligned, _scratch,
                                             _scratch_bytes, bwd_plan)
 
 NAME = "ln_mlp_fwd"
@@ -145,19 +145,22 @@ def _check_ln(name, x, tensors):
 
 def ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, eps: float = EPS):
     """Launches the CUDA forward; raises on a tensor or shape it does not
-    take.  gamma, beta and the biases are read in f32."""
+    take.  gamma, beta and the biases are read in f32.  On the two-pass
+    route (expert_ffn.ffn_route) h = bf16(LN(x)) and the hidden activation
+    live in a scratch for this call."""
     S, d, H = _check_ln(NAME, x, {"w1": w1, "b1": b1, "w2": w2, "b2": b2,
                                   "gamma": gamma, "beta": beta})
     gamma, beta, b1, b2 = (_f32_aligned(t) for t in (gamma, beta, b1, b2))
     out = torch.empty_like(x)
     if S == 0:
         return out
-    fn = _build.bind(NAME, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    scratch, ptr = _scratch(NAME, x.device, S, d, H)
+    fn = _build.bind(NAME, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                            + [ctypes.c_float, ctypes.c_void_p])
     err = _build.call(
         fn, x.device, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), S, d, H, eps)
+        out.data_ptr(), ptr, S, d, H, eps)
     _build.check(err, NAME, f"x {tuple(x.shape)}, hidden {H}")
     _build.count_launch(NAME)
     return out

@@ -118,12 +118,18 @@ def test_expert_quantization_error_matches_jax():
 # of the largest |ref|, and 1e-3 relative Frobenius error, which a weight or
 # activation left unrounded exceeds (3.8e-3 at these inputs; here the two
 # agree bit for bit).  f32: OP_TOL of the largest |ref|.
+# the model widths the port's FFN kernels take: the flagships' 128 (384
+# alike), ViT-tiny's 192, ViT-base's 768 and ViT-large's 1024
+WIDTHS = (128, 192, 768, 1024)
+
+
+@pytest.mark.parametrize("d", WIDTHS, ids=[f"d{d}" for d in WIDTHS])
 @pytest.mark.parametrize("dtype,tol,fro", [(torch.float32, OP_TOL, None),
                                            (torch.bfloat16, 1e-2, 1e-3)],
                          ids=["f32", "bf16"])
-def test_quantized_expert_ffn_plain_matches_jax_kernel(dtype, tol, fro):
+def test_quantized_expert_ffn_plain_matches_jax_kernel(dtype, tol, fro, d):
     rng = np.random.RandomState(2)
-    E, C, d, H = 2, 40, 128, 128
+    E, C, H = 2, 40 if d == 128 else 24, 128
     w1, w2 = ((rng.randn(*sh) * 0.1).astype(np.float32)
               for sh in ((E, d, H), (E, H, d)))
     w1[0, :, 1] = 0.0                       # an all-zero out channel
@@ -147,9 +153,11 @@ def test_quantized_expert_ffn_plain_matches_jax_kernel(dtype, tol, fro):
         assert np.linalg.norm(got - ref) <= fro * np.linalg.norm(ref)
 
 
-def test_ln_mlp_plain_and_function_match_jax_vjp():
+@pytest.mark.parametrize("d", WIDTHS, ids=[f"d{d}" for d in WIDTHS])
+def test_ln_mlp_plain_and_function_match_jax_vjp(d):
     rng = np.random.RandomState(3)
-    S, d, H = 40, 128, 256          # S not a tile multiple
+    # S not a tile multiple
+    S, H = (40, 256) if d == 128 else (24, 128)
     x = (rng.randn(S, d) * 2 + 0.5).astype(np.float32)
     gamma = (1 + 0.1 * rng.randn(d)).astype(np.float32)
     beta = (0.1 * rng.randn(d)).astype(np.float32)

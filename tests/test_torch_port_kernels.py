@@ -126,10 +126,18 @@ def test_flash_kernels_lse_and_determinism(cuda, B, N, d, valid):
 # K3's cases: the serving and train capacities, the 5-task eval's no-drop
 # capacity at B=8 (8200 = every token), the dense MLP, and token counts
 # that are not a multiple of its 128-row tile (77: one tile whose second
-# 64-row half is partly past the end; 40: wholly past it)
+# 64-row half is partly past the end; 40: wholly past it); then the other
+# model widths: ViT-tiny's experts (d 192, hidden 384, train capacity 88)
+# and dense MLP on the fused route, ViT-base's experts (768 x 1536) and
+# dense MLP (x 3072) and ViT-large's dense MLP (1024 x 4096, whose last
+# 192-column output tile is a third full) on the two-pass route, each also
+# at a ragged token count
 FFN_CASES = [(16, 520, 384, 384), (1, 1000, 384, 1536), (3, 77, 128, 256),
              (16, 2568, 384, 384), (16, 8200, 384, 384), (2, 77, 384, 384),
-             (1, 40, 384, 1536)]
+             (1, 40, 384, 1536),
+             (16, 88, 192, 384), (1, 516, 192, 768), (3, 77, 192, 384),
+             (16, 1288, 768, 1536), (1, 1000, 768, 3072), (2, 77, 768, 1536),
+             (1, 1000, 1024, 4096), (3, 40, 1024, 256)]
 
 
 def _ffn_args(cuda, E, C, d, H, seed):
@@ -157,7 +165,9 @@ def test_ffn_kernel_matches_plain(cuda, E, C, d, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("E,C,d,H", [(16, 2568, 384, 384), (1, 8200, 384, 1536),
-                                     (16, 8200, 384, 384), (3, 77, 128, 256)])
+                                     (16, 8200, 384, 384), (3, 77, 128, 256),
+                                     (16, 88, 192, 384), (16, 1288, 768, 1536),
+                                     (1, 9608, 1024, 4096)])
 def test_ffn_kernel_is_deterministic(cuda, E, C, d, H):
     """Two runs of K3 on the same inputs give the same bits."""
     args = _ffn_args(cuda, E, C, d, H, 8)
@@ -199,7 +209,9 @@ def test_flash_bwd_kernel_matches_plain(cuda, B, N, d, valid):
 # gradients on 132 SMs), and shorter or ragged token counts (77: rows of
 # 256 B, not a multiple of the 128-row tile; 2 splits)
 FFN_BWD_CASES = [(16, 520, 384, 384), (1, 1000, 384, 1536), (3, 77, 128, 256),
-                 (16, 2568, 384, 384), (1, 8200, 384, 1536)]
+                 (16, 2568, 384, 384), (1, 8200, 384, 1536),
+                 (16, 88, 192, 384), (1, 516, 192, 768), (16, 1288, 768, 1536),
+                 (2, 77, 768, 1536), (1, 1000, 1024, 4096), (3, 77, 1024, 256)]
 
 
 @pytest.mark.cuda
@@ -250,7 +262,9 @@ def test_ffn_bwd_kernel_matches_plain_at_other_splits(cuda, splits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,C,d,H", [(16, 2568, 384, 384), (3, 77, 128, 256)])
+@pytest.mark.parametrize("E,C,d,H", [(16, 2568, 384, 384), (3, 77, 128, 256),
+                                     (16, 88, 192, 384), (16, 1288, 768, 1536),
+                                     (1, 1000, 1024, 4096)])
 def test_ffn_bwd_kernel_is_deterministic(cuda, E, C, d, H):
     """Two runs of K4 on the same inputs give the same bits (no atomics;
     split partials summed in a fixed order)."""
@@ -303,10 +317,13 @@ def _ffn_q_args(cuda, E, C, d, H, seed):
 
 
 # bucket 1 and bucket 8 of the int8 serving path, a narrow width, and a
-# 40-token tail (one 128-token tile, mostly past the end) at d = 384
+# 40-token tail (one 128-token tile, mostly past the end) at d = 384; the
+# ViT-tiny and ViT-base expert widths (fused and two-pass routes)
 @pytest.mark.cuda
 @pytest.mark.parametrize("E,C,d,H", [(16, 520, 384, 384), (3, 77, 128, 256),
-                                     (16, 4104, 384, 384), (2, 40, 384, 384)])
+                                     (16, 4104, 384, 384), (2, 40, 384, 384),
+                                     (3, 77, 192, 384), (16, 520, 768, 1536),
+                                     (2, 40, 768, 1536), (2, 40, 1024, 256)])
 def test_ffn_q_kernel_matches_plain(cuda, E, C, d, H):
     h, q1, s1, b1, q2, s2, b2 = _ffn_q_args(cuda, E, C, d, H, 4)
     before = _build.launches.get("expert_ffn_q_fwd", 0)
@@ -321,7 +338,8 @@ def test_ffn_q_kernel_matches_plain(cuda, E, C, d, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,d,H", [(16, 384, 384), (3, 128, 256)])
+@pytest.mark.parametrize("E,d,H", [(16, 384, 384), (3, 128, 256),
+                                   (3, 192, 384), (16, 768, 1536)])
 def test_ffn_q_dequant_pass_is_bitwise_plain(cuda, E, d, H):
     """K7's dequantizing pass gives dequantize_weight(q, s).bfloat16() bit
     for bit: rows at -127 and 127 (and both in turn), an all-zero row, and
@@ -344,7 +362,8 @@ def test_ffn_q_dequant_pass_is_bitwise_plain(cuda, E, d, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,C,d,H", [(16, 520, 384, 384), (3, 77, 128, 256)])
+@pytest.mark.parametrize("E,C,d,H", [(16, 520, 384, 384), (3, 77, 128, 256),
+                                     (3, 77, 192, 384), (16, 520, 768, 1536)])
 def test_ffn_q_kernel_is_k3_on_plain_banks(cuda, E, C, d, H):
     """K7 gives K3's bits on the plain-dequantized bf16 banks."""
     h, q1, s1, b1, q2, s2, b2 = _ffn_q_args(cuda, E, C, d, H, 13)
@@ -356,7 +375,8 @@ def test_ffn_q_kernel_is_k3_on_plain_banks(cuda, E, C, d, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,C,d,H", [(16, 4104, 384, 384), (3, 77, 128, 256)])
+@pytest.mark.parametrize("E,C,d,H", [(16, 4104, 384, 384), (3, 77, 128, 256),
+                                     (16, 520, 768, 1536)])
 def test_ffn_q_kernel_is_deterministic(cuda, E, C, d, H):
     """Two runs of K7 on the same inputs give the same bits."""
     args = _ffn_q_args(cuda, E, C, d, H, 14)
@@ -378,7 +398,10 @@ def _ln_mlp_args(cuda, S, d, H, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,d,H", [(1000, 384, 1536), (77, 128, 256),
                                    (8200, 384, 1536), (77, 384, 1536),
-                                   (40, 384, 384)])
+                                   (40, 384, 384), (516, 192, 768),
+                                   (77, 192, 384), (8200, 768, 3072),
+                                   (77, 768, 3072), (1000, 1024, 4096),
+                                   (40, 1024, 256)])
 def test_ln_mlp_kernel_matches_plain(cuda, S, d, H):
     x, gamma, beta, w1, b1, w2, b2, _ = _ln_mlp_args(cuda, S, d, H, 5)
     before = _build.launches.get("ln_mlp_fwd", 0)
@@ -390,7 +413,9 @@ def test_ln_mlp_kernel_matches_plain(cuda, S, d, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,d,H", [(8200, 384, 1536), (77, 128, 256)])
+@pytest.mark.parametrize("S,d,H", [(8200, 384, 1536), (77, 128, 256),
+                                   (516, 192, 768), (8200, 768, 3072),
+                                   (9608, 1024, 4096)])
 def test_ln_mlp_kernel_is_deterministic(cuda, S, d, H):
     """Two runs of K5 on the same inputs give the same bits."""
     x, gamma, beta, w1, b1, w2, b2, _ = _ln_mlp_args(cuda, S, d, H, 10)
@@ -402,7 +427,9 @@ def test_ln_mlp_kernel_is_deterministic(cuda, S, d, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,d,H", [(1000, 384, 1536), (77, 128, 256),
-                                   (8200, 384, 1536)])
+                                   (8200, 384, 1536), (516, 192, 768),
+                                   (1000, 768, 3072), (1000, 1024, 4096),
+                                   (77, 1024, 256)])
 def test_ln_mlp_bwd_kernel_matches_plain(cuda, S, d, H):
     x, gamma, beta, w1, b1, w2, _, gr = _ln_mlp_args(cuda, S, d, H, 6)
     before = _build.launches.get("ln_mlp_bwd", 0)
@@ -418,7 +445,8 @@ def test_ln_mlp_bwd_kernel_matches_plain(cuda, S, d, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,d,H", [(8200, 384, 1536), (77, 128, 256)])
+@pytest.mark.parametrize("S,d,H", [(8200, 384, 1536), (77, 128, 256),
+                                   (516, 192, 768), (1000, 1024, 4096)])
 def test_ln_mlp_bwd_kernel_is_deterministic(cuda, S, d, H):
     """Two runs of K6 on the same inputs give the same bits."""
     x, gamma, beta, w1, b1, w2, _, gr = _ln_mlp_args(cuda, S, d, H, 9)

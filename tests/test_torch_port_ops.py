@@ -63,8 +63,17 @@ def _ffn_inputs(rng, E, C, d, H):
     return h, w1, b1, w2, b2
 
 
-def test_fused_expert_ffn_matches_jax():
-    h, w1, b1, w2, b2 = _ffn_inputs(np.random.RandomState(1), 4, 40, 128, 256)
+# the model widths the port's FFN kernels take (d 128 and 384 in the
+# flagships, 192 in ViT-tiny, 768 in ViT-base, 1024 in ViT-large), at small
+# token counts and hidden sizes
+FFN_WIDTHS = [(4, 40, 128, 256), (2, 24, 192, 128), (2, 24, 768, 128),
+              (2, 24, 1024, 128)]
+
+
+@pytest.mark.parametrize("E,C,d,H", FFN_WIDTHS,
+                         ids=[f"d{c[2]}" for c in FFN_WIDTHS])
+def test_fused_expert_ffn_matches_jax(E, C, d, H):
+    h, w1, b1, w2, b2 = _ffn_inputs(np.random.RandomState(1), E, C, d, H)
     ref = np.asarray(jax_expert_ffn(*map(jnp.asarray, (h, w1, b1, w2, b2)),
                                     True))
     t = torch.from_numpy
@@ -73,10 +82,12 @@ def test_fused_expert_ffn_matches_jax():
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-5)
 
 
-def test_fused_dense_mlp_matches_jax():
+@pytest.mark.parametrize("E,C,d,H", FFN_WIDTHS,
+                         ids=[f"d{c[2]}" for c in FFN_WIDTHS])
+def test_fused_dense_mlp_matches_jax(E, C, d, H):
     rng = np.random.RandomState(2)
-    h, w1, b1, w2, b2 = _ffn_inputs(rng, 1, 40, 128, 256)
-    x = h.reshape(2, 20, 128)
+    h, w1, b1, w2, b2 = _ffn_inputs(rng, 1, C, d, H)
+    x = h.reshape(2, C // 2, d)
     ref = np.asarray(jax_dense_mlp(jnp.asarray(x), jnp.asarray(w1[0]),
                                    jnp.asarray(b1[0]), jnp.asarray(w2[0]),
                                    jnp.asarray(b2[0]), interpret=True))
