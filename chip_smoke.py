@@ -45,7 +45,16 @@ random weights) along each of its paths, the kernels' launch counts set to
   bit for bit, the dense ViT-small with TAM (--pos_emb_from_pretrained;
   rematerialised against not), and the NYUD dropout/drop-path config at
   480 x 640, whose training leaves the FFN kernels as the JAX package
-  does.
+  does;
+- wide: the ViT-base, ViT-large and ViT-tiny families (K3-K7 at d 768,
+  1024 and 192) through the CLI, served and trained;
+- parallel: the expert-parallel exchange (moe/dispatch.py) over a
+  one-rank NCCL group against the local FFN for a2a_chunks 1, 2 and 3,
+  then the EP config (configs/cityscapes/vit_base_moe_ep.yml, ViT-base at
+  full width) through the CLI under torch.distributed.run with --n_data 1
+  --n_expert 1 --a2a_chunks 2: steps, --resume, --eval, one-by-one with
+  accumulation and the tracing flags, against a run without a process
+  group.
 Each phase prints one JSON line; the line before the last is nvidia-smi's
 card name and power limit, and the last line is {"ok": true, "device":
 {...}}.  Any failed check exits non-zero before that line; without CUDA the
@@ -56,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import itertools
 import json
 import os
@@ -2963,10 +2973,521 @@ def wide_phase(dev, root: str):
     return paths
 
 
+EP_CONFIG = "configs/cityscapes/vit_base_moe_ep.yml"
+EP_IMAGES, EP_HW, EP_BATCH = 32, (256, 512), 8   # 4 steps an epoch
+EP_STOP = 3                # run 1 stops after 3 steps, --resume runs 1
+EP_STEPS = 5               # timed steps of the in-process EP step
+EP_OBO_CALLS = 4           # one-by-one calls (2 optimizer steps) at accum 2
+EP_CHUNKS = 2              # the CLI runs' --a2a_chunks
+EP_TIMED = 20              # timed calls of the exchange and the local FFN
+EP_LOSS_REL_TOL = 2e-3     # the EP run's first loss against the no-group run's
+EP_RUN_TIMEOUT_S = 300
+PARALLEL_PHASE_LIMIT_S = 300.0
+#: device kernels a trace of the EP CLI's train steps must show (K1-K4 at
+#: d 768: K1, K2's main kernel, K3's two-pass GEMMs, K4's hidden pass);
+#: NCCL's kernels, which a one-rank group does not launch (its exchange and
+#: all-reduces are device copies), are read where there are any
+EP_TRACE_KERNELS = {"flash_attention_fwd": r"flash_fwd_kernel",
+                    "flash_attention_bwd": r"flash_bwd_kernel",
+                    "expert_ffn_fwd": r"ffn_gemm_kernel<0, ?0, ?[12],",
+                    "expert_ffn_bwd": r"ffn_bwd_hidden_kernel"}
+EP_TRACE_NCCL = r"nccl"
+
+
+def expected_ep_launches(calls: int, eval_batches: int,
+                         chunks: int = EP_CHUNKS, tasks: int = 2,
+                         depth: int = 12, remat: bool = True):
+    """Launches of `calls` train steps (joint or one-by-one: a forward and
+    a backward a task pass) and `eval_batches` eval batches of the EP
+    config (`depth` blocks, half MoE, `tasks` task passes, remat): K1 and
+    K3 once a block and pass forward (again in the remat's recompute),
+    K2 and K4 once a block and pass backward; an MoE block's FFN is
+    `chunks` K3 / K4 launches (one a chunk of local experts)."""
+    ffn = depth // 2 + (depth // 2) * chunks
+    fwd = calls * (2 if remat else 1) + eval_batches
+    out = {"flash_attention_fwd": tasks * depth * fwd,
+           "flash_attention_bwd": tasks * depth * calls,
+           "expert_ffn_fwd": tasks * ffn * fwd,
+           "expert_ffn_bwd": tasks * ffn * calls}
+    return {k: v for k, v in out.items() if v}
+
+
+def ep_dispatch_phase(dev, layout):
+    """moe_ffn's exchange path over a one-rank NCCL expert group at the EP
+    config's shape (B=8 at 128 x 256: 1032 tokens, E 16, K 4, d 768,
+    expert hidden 768, train capacity factor 2.0: K3/K4 on [16 / C, 520,
+    768] a chunk) for a2a_chunks 1, 2 and 3 (3 falls back to 2) against
+    moe_ffn_local on the same kernels and inputs: the forward the same
+    bits, each gradient's difference stated (K4's token splits follow E,
+    so a chunk's weight gradients may sum in another order), launches
+    exactly C K3 and C K4 a call; forward+backward ms of each beside the
+    local path's (CUDA events)."""
+    import torch.distributed as dist
+
+    from m3vit_tpu_torch.moe.dispatch import (MoEFfnParams, a2a_chunk_count,
+                                              moe_ffn)
+
+    t0 = time.perf_counter()
+    p = load_config(EP_CONFIG)
+    E, K, d = p["moe_experts"], p["moe_top_k"], 768
+    hidden = int(d * p["backbone_kwargs"]["moe_mlp_ratio"])
+    T = EP_BATCH * ((128 // 16) * (256 // 16) + 1)
+    cf = 2.0
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(T, d, generator=gen, device=dev).bfloat16()
+    gates, idx = small_topk(torch.softmax(torch.randn(
+        T, E, generator=gen, device=dev), -1), K)
+    bound = hidden ** -0.5
+    banks = [(torch.rand(*shape, generator=gen, device=dev) * 2 - 1)
+             * bound for shape in ((E, hidden, d), (E, hidden),
+                                   (E, d, hidden), (E, d))]
+    cot = torch.randn(T, d, generator=gen, device=dev).bfloat16()
+    leaves = [x.requires_grad_(), gates.requires_grad_()] + [
+        b.requires_grad_() for b in banks]
+
+    def call(chunks, backward=True):
+        y = moe_ffn(x, idx, gates, MoEFfnParams(*banks),
+                    capacity_factor=cf,
+                    group=None if chunks is None
+                    else layout.expert_group,
+                    num_experts_global=E, a2a_chunks=chunks or 1)
+        if backward:
+            (y.float() * cot.float()).sum().backward()
+        return y
+
+    def run(chunks):
+        for t in leaves:
+            t.grad = None
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        y = call(chunks)
+        torch.cuda.synchronize()
+        return (y.detach(), [t.grad.clone() for t in leaves],
+                {k: v for k, v in _build.launches.items() if v})
+
+    ref_y, ref_g, ref_l = run(None)
+    check(ref_l == {"expert_ffn_fwd": 1, "expert_ffn_bwd": 1},
+          f"ep dispatch: the local path launched {ref_l}")
+    names = ("x", "gates", "w1", "b1", "w2", "b2")
+    rows = {"local": {"ms_fwd_bwd": time_ms(lambda: call(None),
+                                            reps=EP_TIMED)}}
+    cap = compute_capacity(T, K, E, cf)
+    for c in (1, 2, 3):
+        C = a2a_chunk_count(E, c)
+        y, g, launches = run(c)
+        same_fwd = torch.equal(y, ref_y)
+        diffs = {n: float((a.float() - b.float()).abs().max()
+                          / max(float(b.float().abs().max()), 1e-30))
+                 for n, a, b in zip(names, g, ref_g)}
+        same_grads = {n: torch.equal(a, b)
+                      for n, a, b in zip(names, g, ref_g)}
+        check(same_fwd, f"ep dispatch a2a_chunks {c}: the forward "
+              "differs from moe_ffn_local's")
+        check(all(v <= GRAD_ABS_FRAC for v in diffs.values()),
+              f"ep dispatch a2a_chunks {c}: gradients off the local "
+              f"path's by {diffs} of their largest (limit "
+              f"{GRAD_ABS_FRAC})")
+        check(launches == {"expert_ffn_fwd": C, "expert_ffn_bwd": C},
+              f"ep dispatch a2a_chunks {c}: launches {launches}, "
+              f"expected {C} K3 and {C} K4")
+        rows[c] = {"chunks_used": C, "forward_same_bits": same_fwd,
+                   "grads_same_bits": same_grads,
+                   "grad_max_abs_err_frac": diffs,
+                   "launches": launches,
+                   "ms_fwd_bwd": time_ms(lambda: call(c),
+                                         reps=EP_TIMED)}
+    for t in leaves:
+        t.grad = None
+    # the host's time for one collective call over the one-rank group
+    # (no device sync in the loop), against a plain device copy
+    small = torch.zeros(1024, device=dev)
+    buf, out_buf = x.detach().clone(), torch.empty_like(x)
+
+    def host_us(fn, n: int = 100):
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t1) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+    rows["host_us_per_call"] = {
+        "all_reduce_4kb": host_us(lambda: dist.all_reduce(small)),
+        "all_to_all_sync": host_us(lambda: dist.all_to_all_single(
+            out_buf, buf, group=layout.expert_group)),
+        "all_to_all_async_wait": host_us(lambda: dist.all_to_all_single(
+            out_buf, buf, group=layout.expert_group,
+            async_op=True).wait()),
+        "all_to_all_async_issue": host_us(lambda: dist.all_to_all_single(
+            out_buf, buf, group=layout.expert_group, async_op=True)),
+        "device_copy": host_us(lambda: out_buf.copy_(buf))}
+    emit({"phase": "parallel_dispatch", "tokens": T, "experts": E,
+          "top_k": K, "d": d, "hidden": hidden, "capacity": cap,
+          "k3_shape_per_chunk": {c: [E // rows[c]["chunks_used"], cap,
+                                     d] for c in (1, 2, 3)},
+          "rows": rows, "seconds": time.perf_counter() - t0})
+    return {"parallel_dispatch": rows[2]["launches"]}
+
+
+def host_profile(fn, n: int = 3, top: int = 10):
+    """n calls of fn under torch.profiler: the card's busy time per call
+    (as device_profile) and the host's time per call in each operator
+    itself (self CPU time), the `top` operators."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    rows = sorted(((e.self_cpu_time_total / 1e3 / n, e.count / n, e.key)
+                   for e in avg), reverse=True)
+    dev_ms = sum(e.device_time_total for e in avg
+                 if e.device_type.name == "CUDA") / 1e3 / n
+    return {"device_ms": dev_ms, "self_cpu_ms": sum(r[0] for r in rows),
+            "top": [{"name": k[:90], "ms": ms, "calls": c}
+                    for ms, c, k in rows[:top]]}
+
+
+def ep_step_phase(dev, layout):
+    """The EP config's train step (B=8 synthetic batch, the CLI's step:
+    make_train_step with the analysis metrics) in steady state, with the
+    one-rank layout (exchange in EP_CHUNKS pieces, SyncBN, the gradient
+    all-reduces) and without a process group, each on a model from the
+    same seed: EP_STEPS steps between CUDA events after 2 warm-up steps,
+    launches per step exactly, peak memory, then 3 steps under
+    torch.profiler: the device time of a step, its idle share and the
+    host's self time by operator; the first step's loss of each against
+    the other."""
+    import yaml
+
+    from m3vit_tpu_torch import parallel
+
+    exp = load_config(EP_CONFIG)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+    try:
+        env, cfg = os.path.join(root, "env.yml"), os.path.join(root, "ep.yml")
+        with open(env, "w") as f:
+            yaml.safe_dump({"root_dir": os.path.join(root, "runs")}, f)
+        with open(cfg, "w") as f:
+            yaml.safe_dump(exp, f)
+        p = create_config(env, cfg, {})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    names = list(p["TASK_NAMES"])
+    loss_fns, weights = build_loss_fns(p), p["loss_kwargs"]["loss_weights"]
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
+                            p["TASKS"], EP_BATCH, tuple(p["train_scale"]))
+    cli_step = functools.partial(make_train_step, analysis_metrics=True)
+    readings, launches, first = {}, {}, {}
+    for name, lay in (("ep", layout), ("nogroup", None)):
+        parallel.set_layout(lay)
+        try:
+            model, _ = build_model(p, device=dev, seed=0)
+            model.train()
+            if lay is not None:
+                parallel.shard_experts(model, lay, EP_CHUNKS)
+            with torch.no_grad():
+                pred, cv, _ = model(batch["image"], noise=torch.Generator(
+                    device=dev).manual_seed(1))
+                first[name] = (multi_task_loss(pred, batch, names, loss_fns,
+                                               weights)["total"]
+                               + 0.01 * cv).item()
+                del pred, cv
+            readings[name], launches[name] = timed_steps(
+                model, names, loss_fns, batch, dev,
+                expected_ep_launches(1, 0, chunks=EP_CHUNKS if lay else 1),
+                f"ep step {name}", make_step=cli_step, weights=weights,
+                profile=False, steps=EP_STEPS)
+            step = cli_step(model, names, loss_fns, weights,
+                            *build_optimizer(model.parameters(), OPTIM,
+                                             steps_per_epoch=100))
+            noise = torch.Generator(device=dev).manual_seed(2)
+            prof = host_profile(lambda: step(batch, noise))
+            readings[name].update(
+                device_ms_per_step=prof["device_ms"],
+                device_idle_frac=1.0 - prof["device_ms"]
+                / readings[name]["step_ms_median"], host=prof)
+            del model, step
+        finally:
+            parallel.set_layout(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = abs(first["ep"] - first["nogroup"]) / abs(first["nogroup"])
+    check(rel <= EP_LOSS_REL_TOL, f"ep step: first loss {first} (rel limit "
+          f"{EP_LOSS_REL_TOL})")
+    emit({"phase": "parallel_step", "config": EP_CONFIG, "batch": EP_BATCH,
+          "first_loss": first, "first_loss_rel": rel, "steps": readings})
+    return {"parallel_step": launches["ep"]}
+
+
+def _trace_kernels(path: str, steps: int, top: int = 12):
+    """From a torch.profiler Chrome trace of `steps` train steps, per step:
+    the launches and device time of each EP_TRACE_KERNELS pattern, of
+    NCCL's kernels, of all kernels and of the device-to-device copies
+    (where a one-rank group's collectives land); the `top` kernels by
+    device time; the host time of the collectives' calls (c10d / NCCL
+    operators) and the `top` CPU operators and CUDA runtime calls by
+    total (inclusive) time."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+
+    def per_step(evs):
+        return {"launches": len(evs) / steps,
+                "ms": sum(e.get("dur", 0) for e in evs) / 1e3 / steps}
+
+    def tops(evs):
+        tot = {}
+        for e in evs:
+            tot[e.get("name", "")] = tot.get(e.get("name", ""), 0) + \
+                e.get("dur", 0)
+        return [{"name": k[:90], "ms": v / 1e3 / steps} for k, v in
+                sorted(tot.items(), key=lambda kv: -kv[1])[:top]]
+
+    by_cat = {}
+    for e in events:
+        by_cat.setdefault(e.get("cat"), []).append(e)
+    kern = by_cat.get("kernel", [])
+    out = {"all_kernels": per_step(kern)}
+    for key, pat in EP_TRACE_KERNELS.items():
+        out[key] = per_step([e for e in kern
+                             if re.search(pat, e.get("name", ""))])
+    out["nccl_kernels"] = per_step([e for e in kern if re.search(
+        EP_TRACE_NCCL, e.get("name", ""), re.I)])
+    out["dtod_copies"] = per_step([e for e in by_cat.get("gpu_memcpy", [])
+                                   if "DtoD" in e.get("name", "")
+                                   or "Device -> Device" in e.get("name",
+                                                                  "")])
+    cpu = by_cat.get("cpu_op", [])
+    out["host_collectives"] = per_step([e for e in cpu if re.match(
+        r"(c10d::|nccl:)", e.get("name", ""))])
+    out["top_kernels"] = tops(kern)
+    out["top_cpu_ops"] = tops(cpu)
+    out["top_cuda_runtime"] = tops(by_cat.get("cuda_runtime", []))
+    return out
+
+
+def parallel_cli_phase(dev, root: str):
+    """The EP config (EP_CONFIG: ViT-base d 768, depth 12, E 16, K 4,
+    expert hidden 768, two Cityscapes tasks, remat, 128 x 256, B=8) at
+    full width through the trainer CLI under ``python -m
+    torch.distributed.run --nproc_per_node 1`` with --n_data 1 --n_expert
+    1 --a2a_chunks EP_CHUNKS (a one-rank NCCL group: the exchange path,
+    SyncBN, the gradient all-reduces, gathered checkpoints) on a
+    fabricated Cityscapes tree of EP_IMAGES images: a run stopped after
+    EP_STOP steps (with --forward_hook, its first 3 steps traced by
+    --profile_dir: K1-K4 must show there), then side by side its --resume
+    (the rest, one no-drop evaluation) and --eval (against the resumed
+    run's results), and the same run without a process group (its losses
+    the reference: the first to EP_LOSS_REL_TOL), a --one_by_one run with
+    accumulation_steps 2 and a --flops --time run (the count on the card
+    against the plain path's on the same model, in this process); each
+    run's launches (its --run_summary) checked exactly."""
+    import yaml
+
+    from m3vit_tpu_torch.parallel.mesh import free_port
+    from m3vit_tpu_torch.utils.tracing import flops_of
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    db = os.path.join(root, "cityscapes")
+    t0 = time.perf_counter()
+    subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from fabricate_dataset import fabricate_cityscapes; "
+         "fabricate_cityscapes(sys.argv[2], int(sys.argv[3]), "
+         "(int(sys.argv[4]), int(sys.argv[5])))",
+         os.path.join(here, "scripts"), db, str(EP_IMAGES),
+         *map(str, EP_HW)], check=True, timeout=300)
+    fabricate_s = time.perf_counter() - t0
+    env, cfg = os.path.join(root, "env.yml"), os.path.join(root, "ep.yml")
+    with open(env, "w") as f:
+        yaml.safe_dump({"root_dir": os.path.join(root, "runs"),
+                        "dataset_roots": {"cityscapes": db}}, f)
+    with open(cfg, "w") as f:
+        yaml.safe_dump(load_config(EP_CONFIG), f)
+    spe = EP_IMAGES // EP_BATCH
+    base = ["--config_env", env, "--config_exp", cfg, "--epochs", "1",
+            "--trBatch", str(EP_BATCH), "--valBatch", str(EP_BATCH),
+            "--moe_eval_capacity_factor", "nodrop", "--log_interval", "1"]
+    mesh = ["--n_data", "1", "--n_expert", "1", "--a2a_chunks",
+            str(EP_CHUNKS)]
+    prof = os.path.join(root, "profile_ep")
+    runs, logs, failed = {}, {}, []
+    # torchrun sets OMP_NUM_THREADS=1 where it is unset; every run gets
+    # this process's thread count, so the runs differ only in the group
+    run_env = {**os.environ, "OMP_NUM_THREADS": str(torch.get_num_threads())}
+
+    def cli(name, extra, torchrun=True):
+        summary = os.path.join(root, f"{name}.json")
+        cmd = [sys.executable] + (
+            ["-m", "torch.distributed.run", "--nproc_per_node", "1",
+             "--master_port", str(free_port())] if torchrun else []) + [
+            "-m", "m3vit_tpu_torch.cli.train"] + base + (
+            mesh if torchrun else []) + extra + ["--run_summary", summary]
+        t1 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                              timeout=EP_RUN_TIMEOUT_S, env=run_env)
+        logs[name] = proc.stdout[-3000:]
+        if proc.returncode != 0 or not os.path.exists(summary):
+            failed.append(f"{name} (rc {proc.returncode}): "
+                          f"{proc.stderr[-3000:]}\n{proc.stdout[-2000:]}")
+            return False
+        with open(summary) as f:
+            runs[name] = json.load(f)
+        runs[name]["seconds"] = time.perf_counter() - t1
+        runs[name]["launched_by_torchrun"] = torchrun
+        return True
+
+    def chain(*items):
+        return all(cli(*item) for item in items)
+
+    # run 1 alone (its first 3 steps traced), then two chains side by side
+    # on the card: its --resume and --eval, and the runs that do not
+    # depend on it (their host clocks share the machine, so no step time
+    # is read from them)
+    chain(("stop", ["--run_name", "ep", "--stop_after_steps", str(EP_STOP),
+                    "--profile_dir", prof, "--forward_hook"]))
+    if not failed:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(2) as pool:
+            jobs = [pool.submit(chain, ("resume", ["--run_name", "ep",
+                                                   "--resume"]),
+                                ("eval", ["--run_name", "ep", "--eval"])),
+                    pool.submit(chain, ("nogroup", [
+                        "--run_name", "nogroup", "--stop_after_steps",
+                        str(EP_STOP)], False),
+                        ("one_by_one", ["--run_name", "ep_obo",
+                                        "--one_by_one",
+                                        "--accumulation_steps", "2",
+                                        "--stop_after_steps",
+                                        str(EP_OBO_CALLS)]),
+                        ("tracing", ["--run_name", "ep_trace", "--flops",
+                                     "--time"]))]
+            for job in jobs:
+                job.result()
+    check(not failed, f"parallel cli runs failed: {failed}")
+    if failed:
+        return {"parallel_cli": {}, "parallel_cli_one_by_one": {}}
+    val_batches = spe
+    # run 1's --forward_hook: one eval forward over its first batch
+    expected = {"stop": expected_ep_launches(EP_STOP, 1),
+                "nogroup": expected_ep_launches(EP_STOP, 0, chunks=1),
+                "resume": expected_ep_launches(spe - EP_STOP, val_batches),
+                "eval": expected_ep_launches(0, val_batches),
+                "one_by_one": expected_ep_launches(EP_OBO_CALLS, 0),
+                "tracing": expected_ep_launches(0, 0)}
+    # --flops' and --time's forwards on one image (1, then 1 + 5)
+    expected["tracing"] = expected_ep_launches(0, 1 + 1 + 5)
+    for name, exp in expected.items():
+        check(runs[name]["launches"] == exp,
+              f"parallel cli run {name}: launches {runs[name]['launches']}, "
+              f"expected {exp}")
+    r1, r0, r2, r3 = (runs[k] for k in ("stop", "nogroup", "resume", "eval"))
+    check(r1.get("stopped_at_step") == EP_STOP
+          and r0.get("stopped_at_step") == EP_STOP
+          and r2["steps_run"] == spe - EP_STOP
+          and r2.get("best") is not None
+          and runs["one_by_one"].get("stopped_at_step") == EP_OBO_CALLS,
+          f"parallel cli: stops {r1.get('stopped_at_step')} / "
+          f"{r0.get('stopped_at_step')}, resume {r2['steps_run']} steps")
+    l1, l0 = dict(map(tuple, r1["losses"])), dict(map(tuple, r0["losses"]))
+    loss_rel = {s: abs(l1[s] - l0[s]) / abs(l0[s]) for s in l0 if s in l1}
+    check(len(loss_rel) == EP_STOP
+          and all(np.isfinite(list(l1.values())))
+          and loss_rel.get(1, 1.0) <= EP_LOSS_REL_TOL,
+          f"parallel cli: EP losses {l1} against no group {l0} (first step "
+          f"rel limit {EP_LOSS_REL_TOL})")
+    ref_leaves = dict(_leaves(r2["best"]))
+    got_leaves = dict(_leaves({k: r3[k] for k in r2["best"]}))
+    eval_rel = max(abs(got_leaves[k] - v) / max(abs(v), 1e-12)
+                   for k, v in ref_leaves.items())
+    check(got_leaves.keys() == ref_leaves.keys()
+          and eval_rel <= CLI_EVAL_REL_TOL,
+          f"parallel cli --eval vs the resumed run's results: max rel diff "
+          f"{eval_rel} (limit {CLI_EVAL_REL_TOL})")
+    # the --flops count on the card against the plain path's, same model
+    tr = runs["tracing"]
+    p = create_config(env, cfg, {"moe_eval_capacity_factor":
+                                 parse_capacity_factor("nodrop")})
+    model, _ = build_model(p, device=dev, seed=0)
+    set_use_kernels(model, False)
+    with torch.no_grad():
+        plain_flops = flops_of(lambda: model(torch.zeros(
+            1, 3, *p["train_scale"], device=dev)))
+    del model
+    torch.cuda.empty_cache()
+    check(tr.get("flops") == plain_flops,
+          f"parallel cli --flops {tr.get('flops')} on the card, the plain "
+          f"path's {plain_flops}")
+    hook_lines = 0
+    if r1.get("forward_hook") and os.path.exists(r1["forward_hook"]):
+        with open(r1["forward_hook"]) as f:
+            hook_lines = sum(1 for _ in f)
+    check(hook_lines > 0 and tr.get("forward_ms", 0) > 0,
+          f"parallel cli tracing: forward_hook.log {hook_lines} lines, "
+          f"forward {tr.get('forward_ms')} ms")
+    path = os.path.join(prof, "trace.json")
+    check(os.path.exists(path), f"parallel cli: no trace in {prof}")
+    ep_trace = _trace_kernels(path, 3) if os.path.exists(path) else {}
+    for key in EP_TRACE_KERNELS:
+        check(ep_trace.get(key, {}).get("launches", 0) > 0,
+              f"parallel cli: the EP run's trace shows no {key} kernel")
+
+    emit({"phase": "parallel_cli", "config": EP_CONFIG,
+          "images": EP_IMAGES, "fabricate_s": fabricate_s,
+          "runs": {k: {kk: vv for kk, vv in r.items()
+                       if kk not in ("best", "step_times")}
+                   for k, r in runs.items()},
+          "launches_expected": expected, "loss_rel_vs_nogroup": loss_rel,
+          "eval_vs_resume_max_rel": eval_rel, "plain_flops": plain_flops,
+          "peak_memory_gb": {k: runs[k].get("peak_memory_bytes", 0) / 1e9
+                             for k in runs},
+          "trace_per_step": ep_trace, "forward_hook_lines": hook_lines,
+          "log_tail": {k: v[-600:] for k, v in logs.items()}})
+    return {"parallel_cli": r1["launches"],
+            "parallel_cli_one_by_one": runs["one_by_one"]["launches"]}
+
+
+def parallel_phase(dev, root: str):
+    """The parallel paths in turn over a one-rank NCCL group made here:
+    the exchange against the local FFN, the EP step in steady state with
+    and without the group, then the EP config through torchrun; their
+    launches by path."""
+    import torch.distributed as dist
+
+    from m3vit_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{parallel.mesh.free_port()}",
+        rank=0, world_size=1, device_id=dev)
+    try:
+        layout = parallel.make_layout(1, 1, dev)
+        paths = ep_dispatch_phase(dev, layout)
+        torch.cuda.empty_cache()
+        paths.update(ep_step_phase(dev, layout))
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    paths.update(parallel_cli_phase(dev, root))
+    phase_s = time.perf_counter() - t0
+    check(phase_s < PARALLEL_PHASE_LIMIT_S,
+          f"parallel phases took {phase_s:.1f} s (limit "
+          f"{PARALLEL_PHASE_LIMIT_S})")
+    emit({"phase": "parallel_total", "seconds": phase_s})
+    return paths
+
+
 # the phases, in order, by the names `--only` takes: the kernels against
 # their plain versions, the flagship's paths, the CLI and the training
-# recipe on its tree, and the wider model families
-PHASES = ("kernels", "flagship", "cli", "wide")
+# recipe on its tree, the wider model families, and data and expert
+# parallelism
+PHASES = ("kernels", "flagship", "cli", "wide", "parallel")
 
 
 def main(argv=None) -> int:
@@ -3050,6 +3571,11 @@ def main(argv=None) -> int:
             wide_root = os.path.join(root, "wide")
             os.makedirs(wide_root)
             paths.update(wide_phase(dev, wide_root))
+            torch.cuda.empty_cache()
+        if "parallel" in only:
+            ep_root = os.path.join(root, "parallel")
+            os.makedirs(ep_root)
+            paths.update(parallel_phase(dev, ep_root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3061,7 +3587,8 @@ def main(argv=None) -> int:
                    "recipe_dense_tam")
     wide_train = ("wide_cli", "wide_cli_ln_mlp", "wide_cli_synthetic_step",
                   "wide_cli_ln_mlp_synthetic_step", "vit_large_train",
-                  "vit_tiny_train")
+                  "vit_tiny_train", "parallel_step", "parallel_cli",
+                  "parallel_cli_one_by_one")
     wide_serving = ("wide_serving", "wide_int8_serving", "vit_large_serving",
                     "vit_tiny_serving")
     fwd_paths = train_paths[:1] + ("serving", "int8_serving",
@@ -3076,8 +3603,9 @@ def main(argv=None) -> int:
              train_paths + ("recipe_dropout_train",) + wide_train
              + ("vit_large_ln_mlp_train",)),
             ("expert_ffn_fwd", "expert_ffn.py:145",
-             fwd_paths + wide_train + wide_serving),
-            ("expert_ffn_bwd", "expert_ffn.py:203", train_paths + wide_train),
+             fwd_paths + wide_train + wide_serving + ("parallel_dispatch",)),
+            ("expert_ffn_bwd", "expert_ffn.py:203",
+             train_paths + wide_train + ("parallel_dispatch",)),
             ("ln_mlp_fwd", "ln_mlp.py:129",
              ("ln_mlp_train", "ln_mlp_serving", "wide_cli_ln_mlp",
               "wide_cli_ln_mlp_synthetic_step", "vit_large_ln_mlp_train")),

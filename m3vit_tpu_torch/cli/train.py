@@ -11,26 +11,46 @@ kernels, the worker-process loader and ``torch.save`` checkpoints:
   step / epoch checkpoints -> online evaluation (no-drop guard, meters,
   best model) -> --eval, --eval --save_predictions (files + edge odsF)
 
+Under ``torchrun`` (or with --n_data / --n_expert / --moe_data_distributed)
+one process a card trains data- and expert-parallel over
+``torch.distributed`` (NCCL; Gloo with --device cpu), as the JAX CLI does
+over its ('data', 'expert') mesh: rank r sits at (r // n_expert,
+r % n_expert), loads trBatch images of every global batch of trBatch x
+world, holds E / n_expert experts of every MoE block and exchanges tokens
+with its expert group by all-to-all (--a2a_chunks pieces); everything
+else is replicated.  Evaluation runs on every rank (the exchange needs
+all of them) over the padded global batches, and checkpoints stay
+one-card files, which rank 0 writes.
+
 Resume is exact: the batch order is fixed by (seed, epoch), each sample's
 augmentation by (seed, epoch, index), each step's gate noise by a
-torch.Generator seeded from (seed, global step), and a checkpoint holds
-the weights, the optimizer's state and the train step's call counter (the
-lr schedule's step).  A run stopped by --stop_after_steps or SIGTERM and
-then --resume'd ends where the uninterrupted run ends.
+torch.Generator seeded from (seed, global step) (a rank takes its rows of
+the global batch's noise), and a checkpoint holds the weights, the
+optimizer's state and the train step's call counter (the lr schedule's
+step).  A run stopped by --stop_after_steps or SIGTERM and then
+--resume'd ends where the uninterrupted run ends.
 
 A run can start from a DeiT checkpoint (--pretrained: its dense MLPs
 upcycled into the MoE blocks' experts, the position embedding resized or,
 by default, left at its initial values) or from a reference multi-task
 checkpoint, one file or a rank-sharded directory (--ref_ckpt); each
 reports the tensors it left at their initial values.  use_checkpointing
-(the config key or the flag) rematerialises the backbone's blocks.  Flags
-of features not ported yet raise NotImplementedError naming their
+(the config key or the flag) rematerialises the backbone's blocks.
+--forward_hook writes the layer summaries of one forward to
+<output_dir>/forward_hook.log (utils/tracing.py); --flops and --time
+report the FLOPs and the latency of a forward on one image and exit;
+--profile_dir records a torch.profiler trace of the first train steps.
+Flags of features not ported yet raise NotImplementedError naming their
 ROADMAP.md item.
 
 Example (a fabricated tree: scripts/fabricate_dataset.py):
   python -m m3vit_tpu_torch.cli.train --config_env env.yml \\
       --config_exp configs/pascal/vit_moe_small_multi_task.yml \\
       --trBatch 8 --epochs 2 --moe_eval_capacity_factor nodrop
+  torchrun --nproc_per_node 4 -m m3vit_tpu_torch.cli.train \\
+      --config_env env.yml \\
+      --config_exp configs/cityscapes/vit_base_moe_ep.yml \\
+      --n_data 1 --n_expert 4 --a2a_chunks 2
 """
 
 from __future__ import annotations
@@ -44,12 +64,15 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from m3vit_tpu_torch import parallel
 from m3vit_tpu_torch.config import create_config
 from m3vit_tpu_torch.data.loader import EpochLoader, get_dataset, to_device
 from m3vit_tpu_torch.data.synthetic import synthetic_batch
 from m3vit_tpu_torch.data.transforms import get_transformations
 from m3vit_tpu_torch.evaluation.orchestrate import (
+    _DropGuard,
     eval_saved_predictions,
     evaluate_online,
     save_model_predictions,
@@ -72,6 +95,12 @@ from m3vit_tpu_torch.utils.checkpoint import (
 )
 from m3vit_tpu_torch.utils.device import resolve_device
 from m3vit_tpu_torch.utils.logging import MetricLogger, setup_stdout_tee
+from m3vit_tpu_torch.utils.tracing import (
+    dump_trace,
+    flops_of,
+    profile_trace,
+    trace_model,
+)
 from m3vit_tpu_torch.utils.torch_interop import (
     deit_to_backbone_params,
     load_into_model,
@@ -80,18 +109,14 @@ from m3vit_tpu_torch.utils.torch_interop import (
     validate_reference_moe_checkpoint,
 )
 
-_ITEM6 = "expert and data parallelism, ROADMAP.md queue 1 item 6"
 _ITEM7 = ("the token variant, task-conditioned models and research knobs, "
           "ROADMAP.md queue 1 item 7")
 _ITEM10 = "sequence parallelism, ROADMAP.md queue 1 item 10"
-_ITEM11 = "the tracing tools, ROADMAP.md queue 1 item 11"
 
 #: flags of the JAX CLI whose feature the port lacks: (flag, takes a
 #: value, why); any use raises NotImplementedError
 UNPORTED = (
-    ("--n_data", True, _ITEM6), ("--n_expert", True, _ITEM6),
-    ("--multihost", False, _ITEM6), ("--moe_data_distributed", False, _ITEM6),
-    ("--a2a_chunks", True, _ITEM6), ("--n_seq", True, _ITEM10),
+    ("--n_seq", True, _ITEM10),
     ("--stacked_tasks", False, _ITEM7), ("--scan_tasks", False, _ITEM7),
     ("--scan_blocks", False, _ITEM7), ("--no_scan_tasks_remat", False, _ITEM7),
     ("--task_one_hot", False, _ITEM7),
@@ -105,8 +130,6 @@ UNPORTED = (
     ("--warmup_epochs", True, _ITEM7), ("--gate_input_ahead", False, _ITEM7),
     ("--share_gamma", True, _ITEM7), ("--bootstrap_share_gamma", True, _ITEM7),
     ("--bootstrap_first_moe", True, _ITEM7),
-    ("--forward_hook", False, _ITEM11), ("--flops", False, _ITEM11),
-    ("--time", False, _ITEM11), ("--profile_dir", True, _ITEM11),
     ("--platform", True, "a JAX option; the port takes --device"),
 )
 
@@ -136,7 +159,8 @@ def parse_args(argv=None):
     ap.add_argument("--moe_mlp_ratio", type=float, default=None)
     ap.add_argument("--one_by_one", action="store_true",
                     help="per-task forward/backward with the gradients "
-                         "added up, one optimizer step per batch (reference "
+                         "added up, one optimizer step per batch (per "
+                         "accumulation_steps batches; reference "
                          "train_utils.py:370-421); the joint step's "
                          "gradients at ~1/T of its peak memory")
     ap.add_argument("--use_checkpointing", action="store_true", default=None,
@@ -240,6 +264,41 @@ def parse_args(argv=None):
     ap.add_argument("--wandb_name", default=None,
                     help="wandb run name (defaults to --run_name)")
     ap.add_argument("--log_interval", type=int, default=25)
+    ap.add_argument("--run_summary", default=None, metavar="FILE",
+                    help="write a JSON record of the run there (rank 0): "
+                         "steps, logged losses, step times, results, the "
+                         "kernels' launches and the peak device memory")
+    # data and expert parallelism (reference train_fastmoe.py:268-312)
+    ap.add_argument("--n_data", type=int, default=None,
+                    help="data-parallel rows of the (data, expert) mesh "
+                         "(default 1; the world under "
+                         "--moe_data_distributed)")
+    ap.add_argument("--n_expert", type=int, default=None,
+                    help="expert-parallel ranks a row (default world / "
+                         "n_data); each holds E / n_expert experts")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the process group torchrun describes "
+                         "across hosts (its environment is required)")
+    ap.add_argument("--moe_data_distributed", action="store_true",
+                    help="replicate the experts on every rank instead of "
+                         "sharding them (forces --n_expert 1)")
+    ap.add_argument("--a2a_chunks", type=int, default=None,
+                    help="split each MoE block's token exchange over N "
+                         "groups of local experts, so a chunk's all-to-all "
+                         "runs beside the previous chunk's expert FFN")
+    # tracing (reference utils/tracing.py, main.py:97-108)
+    ap.add_argument("--forward_hook", action="store_true",
+                    help="dump every layer's output summary for the first "
+                         "batch to <output_dir>/forward_hook.log")
+    ap.add_argument("--flops", action="store_true",
+                    help="print the FLOPs of a forward on one image and "
+                         "exit")
+    ap.add_argument("--time", dest="time_fwd", action="store_true",
+                    help="print the latency of a forward on one image and "
+                         "exit")
+    ap.add_argument("--profile_dir", default=None,
+                    help="write a torch.profiler trace of the first epoch's "
+                         "first three train steps there")
     for flag, value, why in UNPORTED:
         ap.add_argument(flag, default=None, help=f"not ported: {why}",
                         **({} if value else {"action": "store_const",
@@ -255,18 +314,21 @@ def _refuse_unported(args) -> None:
 
 
 class SyntheticLoader:
-    """A fixed set of synthetic batches made on the device (smoke mode)."""
+    """A fixed set of synthetic batches made on the device (smoke mode):
+    rank `rank`'s slice of each of `world` x batch_size images."""
 
     def __init__(self, tasks, n_batches: int, batch_size: int, img_size,
-                 device):
+                 device, rank: int = 0, world: int = 1):
         self.batches = []
+        n = batch_size * world
         for i in range(n_batches):
             gen = torch.Generator(device=device).manual_seed(i)
-            b = synthetic_batch(gen, tasks, batch_size, tuple(img_size))
+            b = synthetic_batch(gen, tasks, n, tuple(img_size))
             b["meta"] = [{"image": f"synth_{i}_{j}",
-                          "im_size": tuple(img_size)}
-                         for j in range(batch_size)]
-            self.batches.append(b)
+                          "im_size": tuple(img_size)} for j in range(n)]
+            lo = rank * batch_size
+            self.batches.append({k: v[lo:lo + batch_size]
+                                 for k, v in b.items()})
 
     def __len__(self):
         return len(self.batches)
@@ -279,6 +341,64 @@ def step_seed(seed: int, global_step: int) -> int:
     """The gate-noise seed of train step `global_step` of a run."""
     return int(np.random.SeedSequence([seed, global_step])
                .generate_state(1, np.uint64)[0])
+
+
+class _NullLogger:
+    """MetricLogger's interface, logging nothing (ranks other than 0)."""
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
+def _parallel_layout(args):
+    """(this rank's layout, whether the run joined the process group
+    itself) for a parallel run (under torchrun, or when a mesh flag is
+    given); (None, False) for a one-process run."""
+    under_torchrun = "WORLD_SIZE" in os.environ
+    if not (under_torchrun or args.multihost or args.moe_data_distributed
+            or args.n_data is not None or args.n_expert is not None):
+        return None, False
+    if args.multihost and not under_torchrun:
+        raise RuntimeError("--multihost joins the process group torchrun "
+                           "describes: launch with torchrun")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if args.moe_data_distributed:
+        # reference --moe_data_distributed: experts replicated
+        # (m3vit_tpu/cli/train.py:449-450)
+        n_expert, n_data = 1, args.n_data or world
+    else:
+        n_data = args.n_data or 1
+        n_expert = args.n_expert if args.n_expert is not None else max(
+            world // n_data, 1)
+    joined = not dist.is_initialized()
+    return parallel.init_distributed(n_data, n_expert, args.device), joined
+
+
+def sharded_eval_step(eval_step, layout: parallel.Layout, global_batch: int):
+    """eval_step over this rank's rows of a global batch: the batch's
+    images padded to `global_batch` rows by repeating the last
+    (m3vit_tpu/data/loader.py:439), the rank's slice run (every rank, as
+    the exchange needs them all), the predictions gathered from every
+    rank and cut back to the batch's own rows, the MoE statistics the
+    global batch's."""
+    per = global_batch // layout.world
+
+    def step(batch):
+        img = batch["image"]
+        n = img.shape[0]
+        if n < global_batch:
+            img = torch.cat([img, img[-1:].expand(global_batch - n,
+                                                  *img.shape[1:])])
+        pred, stats = eval_step({"image": img[layout.rank * per:
+                                              (layout.rank + 1) * per]})
+        full = {}
+        for task, v in pred.items():
+            parts = [torch.empty_like(v) for _ in range(layout.world)]
+            dist.all_gather(parts, v.contiguous())
+            full[task] = torch.cat(parts)[:n]
+        return full, stats
+
+    return step
 
 
 def _plain(d):
@@ -407,9 +527,15 @@ def run(args) -> Dict:
     or --ref_ckpt also "pretrained_missing" / "ref_ckpt_missing", the
     parameters the checkpoint left at their initial values."""
     _refuse_unported(args)
-    device = resolve_device(args.device)
-    p = _config(args)
-    restore_streams = setup_stdout_tee(p["output_dir"])
+    layout, joined = _parallel_layout(args)
+    device = resolve_device(args.device) if layout is None else layout.device
+    try:
+        p = _config(args)
+    except BaseException:
+        _leave_group(layout, joined)
+        raise
+    restore_streams = setup_stdout_tee(p["output_dir"]) if rank0(layout) \
+        else (lambda: None)
     logger = None
     loaders = []
     prev_sigterm = None
@@ -428,9 +554,11 @@ def run(args) -> Dict:
                               config=p,
                               run_name=args.wandb_name or args.run_name,
                               project=args.wandb_project,
-                              entity=args.wandb_entity)
-        return _run(args, p, device, logger, loaders, preempted)
+                              entity=args.wandb_entity) if rank0(layout) \
+            else _NullLogger()
+        return _run(args, p, device, logger, loaders, preempted, layout)
     finally:
+        _leave_group(layout, joined)
         for ld in loaders:
             ld.close()
         if logger is not None:
@@ -440,10 +568,26 @@ def run(args) -> Dict:
         restore_streams()
 
 
-def _run(args, p, device, logger, loaders, preempted) -> Dict:
+def _leave_group(layout, joined: bool) -> None:
+    """Clears the run's layout, and leaves the process group if the run
+    joined it."""
+    if layout is not None:
+        parallel.set_layout(None)
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, p, device, logger, loaders, preempted, layout=None) -> Dict:
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
+    world = 1 if layout is None else layout.world
+    rank = 0 if layout is None else layout.rank
     print(f"device: {device} ({name})")
+    if layout is not None:
+        print(f"parallel: rank {rank} of {world}, mesh (n_data "
+              f"{layout.n_data}, n_expert {layout.n_expert}) position "
+              f"{parallel.mesh_position(rank, layout.n_expert)}, backend "
+              f"{dist.get_backend()}, a2a_chunks {args.a2a_chunks or 1}")
     print(f"tasks: {p['TASK_NAMES']}")
     model, _ = build_model(p, device=device, seed=args.seed)
     tasks = list(p["TASK_NAMES"])
@@ -454,11 +598,15 @@ def _run(args, p, device, logger, loaders, preempted) -> Dict:
 
     batch_size = int(p.get("trBatch", 2))
     val_batch = int(p.get("valBatch", p.get("trBatch", 2)))
+    # per-rank batches: the global batch is batch_size x world
+    # (m3vit_tpu/cli/train.py:466-468); the val loader yields whole global
+    # batches on every rank, which sharded_eval_step pads and slices
     if args.synthetic:
         train_loader = SyntheticLoader(p["TASKS"], args.synthetic, batch_size,
-                                       p["train_scale"], device)
+                                       p["train_scale"], device, rank, world)
         val_loader = SyntheticLoader(p["TASKS"], max(args.synthetic // 2, 1),
-                                     val_batch, p["test_scale"], device)
+                                     val_batch * world, p["test_scale"],
+                                     device)
     else:
         tr, ts = get_transformations(p)
         nworkers = int(p.get("nworkers", 8))
@@ -466,24 +614,22 @@ def _run(args, p, device, logger, loaders, preempted) -> Dict:
         train_loader = EpochLoader(
             get_dataset(p, "train", None, overfit=p["overfit"]), tr,
             batch_size=batch_size, shuffle=True, seed=args.seed,
-            num_workers=nworkers, pin_memory=pin)
+            num_workers=nworkers, pin_memory=pin, rank=rank, world=world)
         loaders.append(train_loader)
         val_loader = EpochLoader(
             get_dataset(p, "val", None, overfit=p["overfit"]), ts,
-            batch_size=val_batch, shuffle=False, drop_last=False,
+            batch_size=val_batch * world, shuffle=False, drop_last=False,
             seed=args.seed, num_workers=nworkers, pin_memory=pin)
         loaders.append(val_loader)
 
     steps_per_epoch = max(len(train_loader), 1)
     epochs = int(p["epochs"])
     accum = max(int(p.get("accumulation_steps", 1)), 1)
-    optimizer, lr_schedule = build_optimizer(model.parameters(), p,
-                                             steps_per_epoch)
     n_params = sum(x.numel() for x in model.parameters())
     print(f"parameters: {n_params/1e6:.2f}M, steps/epoch: {steps_per_epoch}")
 
     out: Dict = {"steps_run": 0, "step_times": [],
-                 "state": {"model": model, "optimizer": optimizer}}
+                 "state": {"model": model, "layout": layout}}
     if args.pretrained and args.backbone_random_init:
         # reference 'scratch' mode (train_fastmoe.py:192-197)
         print(f"backbone_random_init: ignoring {args.pretrained}")
@@ -496,17 +642,19 @@ def _run(args, p, device, logger, loaders, preempted) -> Dict:
     if args.ref_ckpt:
         out["ref_ckpt_missing"] = import_reference_checkpoint(
             model, args.ref_ckpt, p)[1]
+    if layout is not None:
+        # the whole banks loaded, keep this rank's experts
+        parallel.shard_experts(model, layout, args.a2a_chunks or 1)
+    optimizer, lr_schedule = build_optimizer(model.parameters(), p,
+                                             steps_per_epoch)
+    out["state"]["optimizer"] = optimizer
 
     cv_w = float(args.moe_noisy_gate_loss_weight) if p.get("use_cv_loss") \
         else 0.0
     if args.one_by_one:
-        if accum > 1:
-            raise NotImplementedError(
-                "--one_by_one with accumulation_steps > 1 is not ported to "
-                "m3vit_tpu_torch")
         train_step = make_one_by_one_train_step(
             model, tasks, loss_fns, loss_weights, optimizer, lr_schedule,
-            cv_weight=cv_w)
+            cv_weight=cv_w, accumulation_steps=accum)
     else:
         train_step = make_train_step(
             model, tasks, loss_fns, loss_weights, optimizer, lr_schedule,
@@ -514,13 +662,16 @@ def _run(args, p, device, logger, loaders, preempted) -> Dict:
     # stats-carrying eval step: evaluate_online enforces the reference's
     # no-drop semantics on dropped_slot_fraction (see _DropGuard)
     eval_step = make_eval_step(model, tasks, with_stats=True)
+    if layout is not None:
+        eval_step = sharded_eval_step(eval_step, layout, val_batch * world)
 
     start_epoch = 0
     skip_iters = 0
     step_ckpt_dir = os.path.join(p["output_dir"], "step_checkpoint")
     if args.resume or args.eval:
         ckpt_dir = args.ckp or p["checkpoint_dir"]
-        meta = restore_checkpoint(ckpt_dir, model, optimizer)
+        meta = restore_checkpoint(ckpt_dir, model, optimizer,
+                                  layout=layout)
         if meta is not None:
             train_step.step = meta["train_step_calls"]
             start_epoch = int(meta.get("epoch", -1)) + 1
@@ -542,7 +693,7 @@ def _run(args, p, device, logger, loaders, preempted) -> Dict:
             if s_epoch * steps_per_epoch + s_next > \
                     start_epoch * steps_per_epoch:
                 meta = restore_checkpoint(step_ckpt_dir, model, optimizer,
-                                          index=idx)
+                                          index=idx, layout=layout)
                 train_step.step = meta["train_step_calls"]
                 start_epoch, skip_iters = s_epoch, s_next
                 print(f"resumed mid-epoch: epoch {s_epoch} iter {s_next}")
@@ -560,10 +711,20 @@ def _run(args, p, device, logger, loaders, preempted) -> Dict:
                   f"{100 * results['multi_task_performance']:.2f}%")
         return results
 
+    if _tracing(args, p, model, tasks, train_loader, device, layout, out):
+        return out
+
     if args.eval:
         if args.save_predictions:
             batches = to_device(val_loader.epoch(start_epoch), device,
                                 keys=("image",))
+            if not rank0(layout):
+                # the exchange needs every rank; rank 0 writes the files
+                guard = _DropGuard(p)
+                for b in batches:
+                    guard.update(eval_step({"image": b["image"]})[1])
+                guard.check()
+                return out
             save_dir = save_model_predictions(p, eval_step, batches)
             print(f"predictions written to {save_dir}")
             if args.synthetic:
@@ -596,19 +757,30 @@ def _run(args, p, device, logger, loaders, preempted) -> Dict:
         # it are never read
         batches = to_device(train_loader.epoch(epoch, start=it0), device)
         t_win = time.time()
+        profiling = None
+        if args.profile_dir and epoch == start_epoch:
+            profiling = profile_trace(
+                args.profile_dir if rank0(layout) else
+                os.path.join(args.profile_dir, f"rank{rank}"))
+            out["profile"] = profiling.__enter__()
         for it, batch in enumerate(batches, start=it0):
             batch.pop("meta", None)
             # this step's gate noise, from (seed, the step's index)
             noise = torch.Generator(device=device).manual_seed(
                 step_seed(args.seed, epoch * steps_per_epoch + it))
             metrics = train_step(batch, noise)
+            if profiling is not None and it == it0 + 2:
+                # the first three steps (m3vit_tpu/cli/train.py:797-799)
+                profiling.__exit__(None, None, None)
+                profiling = None
             global_step = epoch * steps_per_epoch + it + 1   # steps done
             out["steps_run"] += 1
             out["step_times"].append((global_step, time.perf_counter()))
             if (it + 1) % args.log_interval == 0:
                 loss = float(metrics["loss_total"])  # sync point
+                out.setdefault("losses", []).append((global_step, loss))
                 dt = time.time() - t_win
-                ips = args.log_interval * batch_size / dt
+                ips = args.log_interval * batch_size * world / dt
                 t_win = time.time()
                 logger.log_train_losses(
                     {k: (v.tolist() if v.ndim else float(v))
@@ -632,12 +804,14 @@ def _run(args, p, device, logger, loaders, preempted) -> Dict:
                 save_checkpoint(step_ckpt_dir, global_step, model,
                                 optimizer, train_step.step,
                                 {"epoch": epoch, "next_it": it + 1,
-                                 "mid_epoch": True})
+                                 "mid_epoch": True}, layout=layout)
             if stop_now:
                 why = "SIGTERM" if preempted["flag"] else "--stop_after_steps"
                 print(f"[{why}] step checkpoint saved at epoch {epoch} "
                       f"iter {it + 1} -> {step_ckpt_dir}; exiting")
                 return {"stopped_at_step": global_step, **out}
+        if profiling is not None:
+            profiling.__exit__(None, None, None)
         # epoch end: final loss sync (a fully-trained resumed epoch —
         # skip_iters == steps_per_epoch — runs zero iterations here and goes
         # straight to its pending eval/checkpoint)
@@ -658,16 +832,91 @@ def _run(args, p, device, logger, loaders, preempted) -> Dict:
             if improved:
                 save_checkpoint(p["best_model_dir"], epoch, model, optimizer,
                                 train_step.step,
-                                {"results": _plain(results)})
+                                {"results": _plain(results)}, layout=layout)
                 logger.log_best(results, epoch)
         save_checkpoint(p["checkpoint_dir"], epoch, model, optimizer,
-                        train_step.step)
+                        train_step.step, layout=layout)
 
     return {"best": best, **out}
 
 
+def rank0(layout) -> bool:
+    return layout is None or layout.rank == 0
+
+
+def _tracing(args, p, model, tasks, train_loader, device, layout,
+             res: Dict) -> bool:
+    """--forward_hook (then training goes on), --flops and --time (a
+    forward on one image; the run ends), as the JAX CLI wires them
+    (m3vit_tpu/cli/train.py:615-626, :691-720), their results put in
+    `res`.  Returns whether the run ends."""
+    if not (args.forward_hook or args.flops or args.time_fwd):
+        return False
+    sample = next(iter(to_device(train_loader.epoch(0), device)))
+    model.eval()
+    if args.forward_hook:
+        traces = trace_model(model, sample["image"])
+        res["forward_hook"] = os.path.join(p["output_dir"], "forward_hook.log")
+        if rank0(layout):
+            dump_trace(traces, res["forward_hook"])
+        print(f"[forward_hook] {len(traces)} layer summaries -> "
+              f"{res['forward_hook']}")
+    if not (args.flops or args.time_fwd):
+        return False
+    img = sample["image"][:1]
+
+    def fwd():
+        with torch.no_grad():
+            return model(img)[0][tasks[0]]
+
+    if args.flops:
+        res["flops"] = flops_of(fwd)
+        print(f"forward FLOPs (batch=1): {res['flops'] / 1e9:.2f} G")
+    if args.time_fwd:
+        fwd()
+        if device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(5):
+                fwd()
+            end.record()
+            end.synchronize()
+            res["forward_ms"] = start.elapsed_time(end) / 5
+        else:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fwd()
+            res["forward_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"forward latency: {res['forward_ms']:.1f} ms")
+    return True
+
+
+def write_run_summary(path: str, result: Dict, device) -> None:
+    """The run's record as JSON: everything `run` returned but the live
+    state, the kernels' launches in this process and its peak device
+    memory."""
+    from m3vit_tpu_torch.ops import _build
+
+    rec = {k: _plain(v) for k, v in result.items()
+           if k not in ("state", "profile")}
+    rec["launches"] = {k: v for k, v in _build.launches.items() if v}
+    if device.type == "cuda":
+        rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(rec, f)
+
+
 def main(argv=None) -> Dict:
-    return run(parse_args(argv))
+    args = parse_args(argv)
+    result = run(args)
+    layout = (result.get("state") or {}).get("layout")
+    if args.run_summary and rank0(layout):
+        model = result["state"]["model"]
+        write_run_summary(args.run_summary, result,
+                          next(model.parameters()).device)
+    return result
 
 
 if __name__ == "__main__":

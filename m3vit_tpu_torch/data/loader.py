@@ -122,11 +122,15 @@ def epoch_order(n: int, epoch: int, seed: int, shuffle: bool) -> np.ndarray:
 class EpochBatchSampler(Sampler):
     """Batches of ``(epoch, index)`` keys in ``epoch_order``; ``set_epoch``
     picks the epoch and the first batch to yield (a mid-epoch resume skips
-    the batches before it without reading them)."""
+    the batches before it without reading them).  With ``world`` > 1 the
+    batches are global batches of batch_size * world keys and this
+    sampler yields rank ``rank``'s contiguous slice of each (the shard
+    the JAX package's batch sharding gives that device)."""
 
     def __init__(self, n: int, batch_size: int, shuffle: bool,
-                 drop_last: bool, seed: int):
-        self.n, self.batch_size = n, batch_size
+                 drop_last: bool, seed: int, rank: int = 0, world: int = 1):
+        self.n, self.batch_size = n, batch_size * world
+        self.rank, self.per_rank = rank, batch_size
         self.shuffle, self.drop_last, self.seed = shuffle, drop_last, seed
         self.epoch, self.start = 0, 0
 
@@ -143,9 +147,12 @@ class EpochBatchSampler(Sampler):
 
     def __iter__(self):
         order = epoch_order(self.n, self.epoch, self.seed, self.shuffle)
+        lo = self.rank * self.per_rank
         for b in range(self.start, self.num_batches()):
-            yield [(self.epoch, int(i)) for i in
-                   order[b * self.batch_size:(b + 1) * self.batch_size]]
+            keys = order[b * self.batch_size:(b + 1) * self.batch_size]
+            if self.batch_size != self.per_rank:
+                keys = keys[lo:lo + self.per_rank]
+            yield [(self.epoch, int(i)) for i in keys]
 
 
 def init_worker(_worker_id: int) -> None:
@@ -158,7 +165,9 @@ def init_worker(_worker_id: int) -> None:
 
 
 class EpochLoader:
-    """Epochs of collated batches of `dataset` under `transform`.
+    """Epochs of collated batches of `dataset` under `transform` (with
+    ``world`` > 1, rank ``rank``'s slice of each global batch of
+    batch_size * world samples).
 
     num_workers 0 loads in the calling process; above 0, that many
     persistent worker processes with PyTorch's default two batches in
@@ -169,10 +178,11 @@ class EpochLoader:
 
     def __init__(self, dataset, transform, batch_size: int,
                  shuffle: bool = True, drop_last: bool = True, seed: int = 0,
-                 num_workers: int = 0, pin_memory: bool = False):
+                 num_workers: int = 0, pin_memory: bool = False,
+                 rank: int = 0, world: int = 1):
         self.dataset = TransformedDataset(dataset, transform, seed)
         self.sampler = EpochBatchSampler(len(dataset), batch_size, shuffle,
-                                         drop_last, seed)
+                                         drop_last, seed, rank, world)
         workers = dict(num_workers=num_workers, persistent_workers=True,
                        worker_init_fn=init_worker) if num_workers > 0 \
             else {}

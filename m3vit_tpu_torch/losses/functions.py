@@ -3,6 +3,12 @@
 
 Predictions are [B, C, H, W] and labels [B, C_label, H, W]; every loss is
 computed in f32 and returns a scalar.  The ignore label is 255.
+
+Under data parallelism (a ``parallel`` layout in force) every count a loss
+divides by -- valid pixels, elements, positive labels -- is the global
+batch's, summed over the world without gradient, so a rank's loss is its
+share of the global loss (functions.py:47-48, :76-83, :110, :126 see the
+whole batch) and the ranks' losses and gradients add up to it.
 """
 
 from __future__ import annotations
@@ -13,6 +19,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from m3vit_tpu_torch.parallel import world_size, world_sum
+
 IGNORE = 255.0
 
 
@@ -22,7 +30,7 @@ def softmax_ce_loss(logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     lab = label[:, 0].long()
     nll = F.cross_entropy(logits.float(), lab, ignore_index=255,
                           reduction="none")
-    n_valid = (lab != 255).sum().clamp(min=1)
+    n_valid = world_sum((lab != 255).sum()).clamp(min=1)
     return nll.sum() / n_valid
 
 
@@ -42,14 +50,16 @@ def balanced_bce_loss(output: torch.Tensor, label: torch.Tensor,
     """HED-style class-balanced BCE (functions.py:67-88): edge gets the
     config's pos_weight, sal the dynamic negative fraction."""
     labels = (label.float() >= 0.5).float()
+    n = world_size()
     if pos_weight is None:
-        num_total = float(labels.numel())
-        w = (num_total - labels.sum()) / num_total
+        num_total = float(labels.numel() * n)
+        w = (num_total - world_sum(labels.sum())) / num_total
     else:
         w = pos_weight
     loss_pos_pix, loss_neg_pix = _stable_bce_terms(output, labels)
     final = w * loss_pos_pix.sum() + (1.0 - w) * loss_neg_pix.sum()
-    return final / float(labels.numel() if size_average else labels.shape[0])
+    return final / float(n * (labels.numel() if size_average
+                              else labels.shape[0]))
 
 
 def bce_loss(output: torch.Tensor, label: torch.Tensor,
@@ -59,7 +69,8 @@ def bce_loss(output: torch.Tensor, label: torch.Tensor,
     labels = (label.float() >= 0.5).float()
     loss_pos_pix, loss_neg_pix = _stable_bce_terms(output, labels)
     final = loss_pos_pix.sum() + loss_neg_pix.sum()
-    return final / float(labels.numel() if size_average else labels.shape[0])
+    return final / float(world_size() * (labels.numel() if size_average
+                                         else labels.shape[0]))
 
 
 def depth_l1_loss(output: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
@@ -68,7 +79,7 @@ def depth_l1_loss(output: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     label = label.float()
     mask = label != IGNORE
     diff = torch.where(mask, (output.float() - label).abs(), 0.0)
-    return diff.sum() / mask.sum().clamp(min=1)
+    return diff.sum() / world_sum(mask.sum()).clamp(min=1)
 
 
 def normals_l1_loss(output: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
@@ -80,7 +91,7 @@ def normals_l1_loss(output: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     out = out / (torch.linalg.vector_norm(out, dim=1, keepdim=True) + 1e-12)
     mask = label != IGNORE
     diff = torch.where(mask, (out - label).abs(), 0.0)
-    return diff.sum() / mask.sum().float().clamp(min=1e-6)
+    return diff.sum() / world_sum(mask.sum().float()).clamp(min=1e-6)
 
 
 def get_loss_fn(loss_kind: str, p=None) -> Callable:

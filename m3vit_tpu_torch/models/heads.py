@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from m3vit_tpu_torch.models.vit import conv2d, layer_norm
+from m3vit_tpu_torch import parallel
+from m3vit_tpu_torch.models.vit import _hooked, conv2d, layer_norm
 
 #: flax BatchNorm momentum 0.9 (running = 0.9 running + 0.1 batch) is
 #: torch's momentum 0.1 (heads.py:59-60)
@@ -34,6 +35,30 @@ def init_conv_lecun(weight: torch.Tensor, fan_in: int,
         weight.copy_(w)
 
 
+def sync_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """Training BatchNorm over the global batch of a data-parallel run: the
+    per-channel sum, then the sum of squared deviations from the global
+    mean, each summed over the world differentiably (parallel.
+    world_sum_grad), in f32; folds the global *biased* variance as flax
+    does (a SyncBN of the JAX package's global-batch semantics).  Every
+    rank holds as many images (the train sampler's shards, the eval's
+    padded global batches)."""
+    xf = x.float()
+    dims = [0] + list(range(2, x.ndim))
+    n = float(x.numel() // x.shape[1] * parallel.world_size())
+    mean = parallel.world_sum_grad(xf.sum(dims)) / n
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    xc = xf - mean.reshape(shape)
+    var = parallel.world_sum_grad((xc * xc).sum(dims)) / n
+    y = xc * (torch.rsqrt(var + bn.eps) * bn.weight).reshape(shape) \
+        + bn.bias.reshape(shape)
+    with torch.no_grad():
+        bn.running_mean.lerp_(mean, BN_MOMENTUM)
+        bn.running_var.lerp_(var, BN_MOMENTUM)
+        bn.num_batches_tracked.add_(1)
+    return y
+
+
 def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor,
                training: bool) -> torch.Tensor:
     """flax BatchNorm(momentum 0.9, dtype f32) with `bn`'s parameters and
@@ -41,10 +66,18 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor,
     f32); in training by the batch's, computed in f32 (a bf16 input is
     normalised in f32 and rounded once), folding the batch's *biased*
     variance into running_var as flax does, where torch.nn.BatchNorm2d
-    folds the unbiased one."""
+    folds the unbiased one.  Under data parallelism the statistics are
+    the global batch's (``sync_batch_norm``)."""
+    return _hooked(bn, x, _batch_norm(bn, x, training))
+
+
+def _batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor,
+                training: bool) -> torch.Tensor:
     if not training:
         return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
                             bn.weight, bn.bias, False, 0.0, bn.eps)
+    if parallel.active() is not None:
+        return sync_batch_norm(bn, x)
     # F.batch_norm folds the batch statistics into copies (autograd keeps
     # the tensors it was given); torch folds var * n / (n - 1) into
     # running_var, flax the biased var: undo the factor when copying back

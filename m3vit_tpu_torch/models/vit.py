@@ -58,22 +58,31 @@ def fill_uniform(p: torch.Tensor, bound: float, gen: torch.Generator) -> None:
     p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=gen))
 
 
+def _hooked(mod: nn.Module, x: torch.Tensor, out: torch.Tensor):
+    """`out` after `mod`'s forward hooks, which a module applied through
+    the functions below would skip (utils/tracing.py hooks every module)."""
+    for hook in mod._forward_hooks.values():
+        hook(mod, (x,), out)
+    return out
+
+
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm in f32 whatever x's dtype (flax LayerNorm(dtype=f32))."""
-    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
-                        norm.bias, norm.eps)
+    return _hooked(norm, x, F.layer_norm(x.float(), norm.normalized_shape,
+                                         norm.weight, norm.bias, norm.eps))
 
 
 def linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
     """nn.Linear on x with its f32 weight and bias cast to `dtype`."""
     bias = None if lin.bias is None else lin.bias.to(dtype)
-    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+    return _hooked(lin, x, F.linear(x.to(dtype), lin.weight.to(dtype), bias))
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
     """nn.Conv2d on x with its f32 weight and bias cast to `dtype`."""
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
-                    conv.stride, conv.padding)
+    return _hooked(conv, x, F.conv2d(x.to(dtype), conv.weight.to(dtype),
+                                     conv.bias.to(dtype), conv.stride,
+                                     conv.padding))
 
 
 def set_use_kernels(model: nn.Module, flag: bool) -> None:
@@ -190,8 +199,8 @@ class MlpBlock(nn.Module):
         out = fused_expert_ffn_plain(
             x.reshape(1, -1, x.shape[-1]), self.fc1.weight.to(cd)[None],
             self.fc1.bias[None], self.fc2.weight.to(cd)[None],
-            self.fc2.bias[None], self.drop, rng)
-        return dropout(out, self.drop, rng).reshape(x.shape)
+            self.fc2.bias[None], self.drop, rng, token_major=True)
+        return dropout(out, self.drop, rng, batch_dim=1).reshape(x.shape)
 
 
 class DenseBlock(nn.Module):

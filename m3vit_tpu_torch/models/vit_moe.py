@@ -19,16 +19,31 @@ the quantized FFN; such a model serves only and raises in ``train()``
 mode.  ``ln_mlp`` is the JAX package's ``use_pallas_ln_mlp``: the dense
 blocks' LayerNorm + MLP + residual run as one fused sublayer
 (``ops/ln_mlp.py``) on the same parameters.
+
+Under data and expert parallelism (``parallel.shard_experts`` sets an MoE
+block's ``layout``) a block holds its rank's expert shard and exchanges
+tokens over the expert group; its gate noise is the rank's rows of the
+global batch's noise, and its balance loss and statistics are those of
+the global batch (the importance and load summed over the world before
+cv^2; the statistics summed over the world by the step).
+
+With ``M3VIT_LOG_GATE_INTERNALS`` set (1 / true / yes / on) the gates'
+analysis statistics also carry the full-softmax entropy of the noisy
+logits, its maximum and the number of distinct groups of 4 experts the
+top-k hits (vit_moe.py:599-640).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from m3vit_tpu_torch import parallel
 from m3vit_tpu_torch.models.vit import (
     Attention,
     DenseBlock,
@@ -61,6 +76,15 @@ from m3vit_tpu_torch.moe.gating import (
 
 #: the gates of vit_moe.py:MoEMlp (gate_type / moe_gate_type)
 GATE_TYPES = ("noisy_vmoe", "noisy")
+
+#: the environment variable that adds the gate internals to the analysis
+#: statistics (vit_moe.py:599-640; reference noisy_gate_vmoe.py:209-244)
+GATE_INTERNALS_ENV = "M3VIT_LOG_GATE_INTERNALS"
+
+
+def gate_internals_on() -> bool:
+    return str(os.environ.get(GATE_INTERNALS_ENV, "0")).lower() in (
+        "1", "true", "yes", "on")
 
 
 def add_stats(acc: Dict[str, torch.Tensor], st: Dict[str, torch.Tensor]):
@@ -190,6 +214,10 @@ class MoEMlp(nn.Module):
         self.experts = Experts(num_experts, dim, d_hidden,
                                int8=expert_weights_int8)
         self.use_kernels = True
+        # set by parallel.shard_experts: the rank's layout, the exchange's
+        # chunk count
+        self.layout = None
+        self.a2a_chunks = 1
 
     def forward(self, x: torch.Tensor, task_id: Optional[int],
                 noise: Optional[torch.Generator] = None
@@ -208,9 +236,15 @@ class MoEMlp(nn.Module):
             if noise is None:
                 raise ValueError("training the noisy gate needs gate noise: "
                                  "pass a torch.Generator as `noise`")
-            # the JAX package draws it with jax.random.normal (gating.py:112)
-            gate_noise = torch.randn((B * N, E), generator=noise,
+            # the JAX package draws it with jax.random.normal (gating.py:112);
+            # a rank takes its rows of the global batch's noise
+            lay = self.layout
+            world = 1 if lay is None else lay.world
+            gate_noise = torch.randn((world * B * N, E), generator=noise,
                                      device=x.device)
+            if lay is not None:
+                gate_noise = gate_noise[lay.rank * B * N:
+                                        (lay.rank + 1) * B * N]
         if learned:
             gate = noisy_gate(x.reshape(-1, C).float(), gate_mod.w_gate,
                               gate_mod.w_noise, top_k=K, noise=gate_noise)
@@ -223,20 +257,25 @@ class MoEMlp(nn.Module):
         cf = self.capacity_factor if self.training else \
             self.eval_capacity_factor
         drop = self.drop if self.training else 0.0
+        lay = self.layout
         out = moe_ffn(x, top_idx, top_gates, self.experts.ffn_params(),
                       capacity_factor=cf, use_kernels=self.use_kernels,
-                      dropout_rate=drop, rng=noise)
+                      dropout_rate=drop, rng=noise,
+                      group=None if lay is None else lay.expert_group,
+                      num_experts_global=E, a2a_chunks=self.a2a_chunks)
 
         # exact dropped-slot accounting against the dispatch capacity
-        # (vit_moe.py:419-439); ids >= E are intentional non-compute
+        # (vit_moe.py:419-439), per rank: the step sums the ranks' shares
+        # of the global fraction; ids >= E are intentional non-compute
         T = B * N
         cap = compute_capacity(T, K, E, cf)
         ids = top_idx.reshape(-1).clamp(max=E)
         hist = torch.zeros(E + 1, device=x.device).scatter_add_(
             0, ids, torch.ones(ids.shape, device=x.device))[:E]
         overflow = torch.clamp(hist - cap, min=0.0).sum()
+        world = 1 if lay is None else lay.world
         stats = {
-            "dropped_slot_fraction": overflow / (T * K),
+            "dropped_slot_fraction": overflow / (world * T * K),
             "moe_stat_count": torch.ones((), device=x.device),
         }
         if self.gate_stats:
@@ -248,7 +287,9 @@ class MoEMlp(nn.Module):
         (vit_moe.py:577-582); 0 outside training."""
         loss = moe_aux_loss_noisy if self.gate_type == "noisy" \
             else moe_aux_loss
-        return loss(gate, self.top_k, self.num_experts, self.training)
+        return loss(gate, self.top_k, self.num_experts, self.training,
+                    reduce=None if self.layout is None
+                    else parallel.world_sum_grad)
 
     @staticmethod
     @torch.no_grad()
@@ -258,12 +299,41 @@ class MoEMlp(nn.Module):
         the top-k scores carry what the dense gates do)."""
         tk = gate.top_k_gates.float()
         ent = -(tk * torch.log(tk.clamp(min=1e-12))).sum(-1)
-        return {
+        stats = {
             "gate_entropy_sum": ent.sum(),
             "top1_prob_sum": tk.max(-1).values.sum(),
             "gate_token_count": torch.tensor(float(tk.shape[0]),
                                              device=tk.device),
             "expert_load_hist": gate_load_counts(gate),
+        }
+        if gate_internals_on():
+            stats.update(MoEMlp.gate_internals(gate))
+        return stats
+
+    @staticmethod
+    @torch.no_grad()
+    def gate_internals(gate: GateOutput) -> Dict[str, torch.Tensor]:
+        """The full softmax of the noisy logits: its entropy and maximum
+        summed over tokens, and the number of distinct groups of 4
+        experts each token's top-k hits, summed (vit_moe.py:604-640).
+        With E % 4 != 0 the groups are single experts, with the JAX
+        package's warning."""
+        E = gate.noisy_logits.shape[-1]
+        p = torch.softmax(gate.noisy_logits.float(), -1).clamp(min=1e-9)
+        group = 4 if E % 4 == 0 else 1
+        if group == 1:
+            warnings.warn(
+                f"{GATE_INTERNALS_ENV}: moe_experts={E} not divisible by 4; "
+                "falling back to group_size=1 -- topk_group_count is not "
+                "comparable to reference logs (which assert divisibility)",
+                stacklevel=2)
+        gids = torch.sort(torch.div(gate.top_k_indices, group,
+                                    rounding_mode="floor"), -1).values
+        distinct = (gids[:, 1:] != gids[:, :-1]).sum(-1) + 1
+        return {
+            "gate_full_entropy_sum": -(p * torch.log(p)).sum(-1).sum(),
+            "gate_pmax_sum": p.max(-1).values.sum(),
+            "topk_group_count_sum": distinct.float().sum(),
         }
 
 

@@ -10,7 +10,14 @@ dropout on the hidden activation (training), the plain products instead, as
 the JAX package leaves its kernel there.  Slot
 assignment is bitwise the JAX package's: over-capacity slots drop in slot
 order t*K+k, and ids >= E count as dropped before they take capacity.
-Expert parallelism (dispatch.py:543) is not ported.
+
+Expert parallelism (``moe_ffn_expert_parallel``, dispatch.py:415-515):
+each rank of an expert group holds E / ep experts; its tokens are
+dispatched by global expert id into a send buffer, exchanged with
+``all_to_all_single`` over the group, regrouped by local expert across the
+sources, run through the expert FFN (K3/K4 on [E_local, ep*cap, d]) and
+exchanged back for the combine.  The exchange's backward is the
+all-to-all of the cotangents.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from m3vit_tpu_torch.ops.expert_ffn import (
     dequantize_weight,
@@ -262,17 +270,146 @@ def moe_ffn_local(x: torch.Tensor, top_k_indices: torch.Tensor,
     return out.to(x.dtype)
 
 
+class _Exchange(torch.autograd.Function):
+    """all_to_all_single of equal row blocks over `group`.  With a
+    `handle` dict it is issued asynchronously and the output is valid once
+    ``handle["work"].wait()`` returned (the caller waits before it reads
+    it); without one it is in order on the stream.  The backward is the
+    same exchange of the cotangent, which is its own transpose for equal
+    blocks."""
+
+    @staticmethod
+    def forward(ctx, x, group, handle):
+        ctx.group = group
+        out = torch.empty_like(x)
+        work = dist.all_to_all_single(out, x.contiguous(), group=group,
+                                      async_op=handle is not None)
+        if handle is not None:
+            handle["work"] = work
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
+        return out, None, None
+
+
+def _exchange(x: torch.Tensor, group, pipelined: bool):
+    """Starts the exchange of x; returns (output, handle).  Pipelined, it
+    is issued asynchronously: wait on ``handle["work"]`` before reading
+    the output; else (one chunk, which has nothing to overlap) it is in
+    order on the stream and the handle None."""
+    if not pipelined:
+        return _Exchange.apply(x, group, None), None
+    handle = {}
+    return _Exchange.apply(x, group, handle), handle
+
+
+def a2a_chunk_count(num_local_experts: int, a2a_chunks: int) -> int:
+    """The exchange's chunk count: the largest divisor of the local expert
+    count that is at most `a2a_chunks` (dispatch.py:453-455)."""
+    return max(c for c in range(1, min(max(int(a2a_chunks), 1),
+                                       num_local_experts) + 1)
+               if num_local_experts % c == 0)
+
+
+def moe_ffn_expert_parallel(x: torch.Tensor, top_k_indices: torch.Tensor,
+                            top_k_gates: torch.Tensor, params: MoEFfnParams,
+                            *, group, num_experts_global: int,
+                            capacity: int, use_kernels: bool = True,
+                            dropout_rate: float = 0.0,
+                            rng: Optional[torch.Generator] = None,
+                            n_chunks: int = 1) -> torch.Tensor:
+    """Expert-parallel MoE FFN of one rank (dispatch.py:415-515).  x
+    [T, d] is the rank's tokens, top_k_indices [T, K] global expert ids,
+    params the rank's expert shard ([E_local, ...], E_local = E / ep for
+    the expert group's size ep); `capacity` is per (source rank, global
+    expert), from the rank's own T.  n_chunks > 1 splits the exchange over
+    groups of local experts (the largest divisor of E_local at most
+    n_chunks): every chunk's exchange is issued before the first chunk's
+    FFN, and each chunk's return exchange before the next chunk's FFN, so
+    the collectives can run beside the FFNs.  Rows and weights per expert
+    are those of n_chunks = 1.  Differentiable in x, top_k_gates and the
+    shard's weights; with dropout_rate > 0 the plain FFN with dropout, its
+    masks drawn per chunk from `rng`."""
+    T, d = x.shape
+    K = top_k_indices.shape[-1]
+    ep = dist.get_world_size(group)
+    E = int(num_experts_global)
+    if E % ep:
+        raise ValueError(f"{E} experts do not divide over an expert group "
+                         f"of {ep}")
+    E_local = E // ep
+    if params.w1.shape[0] != E_local:
+        raise ValueError(f"the expert shard holds {params.w1.shape[0]} "
+                         f"experts, expected {E_local} = {E} / {ep}")
+    cap = int(capacity)
+    scores = top_k_gates.float()
+    plan = make_dispatch_plan(top_k_indices.reshape(-1), E, cap,
+                              scores.reshape(-1))
+    src_tok = torch.div(plan.src_flat, K, rounding_mode="floor")
+    send = dispatch_gather(x, src_tok, plan.dst).reshape(ep, E_local, cap, d)
+    C = a2a_chunk_count(E_local, n_chunks)
+    Eg = E_local // C
+    pipelined = C > 1
+    # every chunk's exchange first: chunk c+1 moves while chunk c computes
+    recvs = [_exchange(send[:, c * Eg:(c + 1) * Eg].reshape(-1, d), group,
+                       pipelined) for c in range(C)]
+    backs = []
+    for c, (recv, handle) in enumerate(recvs):
+        if pipelined:
+            handle["work"].wait()
+        # recv rows (source, local expert, slot) -> by local expert
+        h = recv.reshape(ep, Eg, cap, d).transpose(0, 1).reshape(
+            Eg, ep * cap, d)
+        pc = MoEFfnParams(*(t[c * Eg:(c + 1) * Eg] for t in params))
+        if dropout_rate > 0.0:
+            y = expert_ffn_dense(h, pc, x.dtype, dropout_rate, rng)
+        else:
+            y = fused_expert_ffn(h, *pc, use_kernels=use_kernels)
+        y = y.reshape(Eg, ep, cap, d).transpose(0, 1).reshape(-1, d)
+        backs.append(_exchange(y, group, pipelined))
+    parts = []
+    for back, handle in backs:
+        if pipelined:
+            handle["work"].wait()
+        parts.append(back.reshape(ep, Eg, cap, d))
+    # [source of the experts, local expert, slot] = global expert order
+    back = torch.cat(parts, dim=1).reshape(E * cap, d)
+    out = combine_gather(back, scores, plan.dst, src_tok, plan.w_slot)
+    return out.to(x.dtype)
+
+
 def moe_ffn(x: torch.Tensor, top_k_indices: torch.Tensor,
             top_k_gates: torch.Tensor,
             params: Union[MoEFfnParams, MoEFfnParamsQ], *,
             capacity_factor: float = 2.0,
             use_kernels: bool = True, dropout_rate: float = 0.0,
-            rng: Optional[torch.Generator] = None) -> torch.Tensor:
-    """MoE FFN over [B, N, d] or [T, d] on one device (the single-device
-    branch of dispatch.py:moe_ffn, :585-604); dropout as moe_ffn_local."""
+            rng: Optional[torch.Generator] = None, group=None,
+            num_experts_global: Optional[int] = None,
+            a2a_chunks: int = 1) -> torch.Tensor:
+    """MoE FFN over [B, N, d] or [T, d] (dispatch.py:moe_ffn, :543-642):
+    with an expert group (`group`, any size, 1 included) the exchange path
+    over it, x being this rank's tokens and params its expert shard of
+    num_experts_global experts, capacity from this rank's token count;
+    else the single-device path.  Dropout as moe_ffn_local."""
     d = x.shape[-1]
     it = top_k_indices.reshape(-1, top_k_indices.shape[-1])
     T, K = it.shape
+    if group is not None:
+        if isinstance(params, MoEFfnParamsQ):
+            raise NotImplementedError(
+                "int8 expert banks serve on one device: the exchange path "
+                "takes float banks")
+        E = int(num_experts_global or params.w1.shape[0])
+        out = moe_ffn_expert_parallel(
+            x.reshape(-1, d), it, top_k_gates.reshape(-1, K), params,
+            group=group, num_experts_global=E,
+            capacity=compute_capacity(T, K, E, capacity_factor),
+            use_kernels=use_kernels, dropout_rate=dropout_rate, rng=rng,
+            n_chunks=a2a_chunks)
+        return out.reshape(x.shape)
     cap = compute_capacity(T, K, params.w1.shape[0], capacity_factor)
     out = moe_ffn_local(x.reshape(-1, d), it,
                         top_k_gates.reshape(-1, K), params, capacity=cap,

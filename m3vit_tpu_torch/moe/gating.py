@@ -132,11 +132,22 @@ def gate_load_counts(gate: GateOutput) -> torch.Tensor:
     return _onehot_accumulate(gate.top_k_indices.reshape(-1), sel, E)
 
 
+def _cv_sum(importance: torch.Tensor, load: torch.Tensor,
+            reduce) -> torch.Tensor:
+    if reduce is not None:   # one reduction for both
+        importance, load = reduce(torch.stack([importance.float(),
+                                               load.float()])).unbind()
+    return cv_squared(importance) + cv_squared(load)
+
+
 def moe_aux_loss(gate: GateOutput, top_k: int, num_experts: int,
-                 train: bool) -> torch.Tensor:
+                 train: bool, reduce=None) -> torch.Tensor:
     """cv^2(importance) + cv^2(load) for one MoE block (gating.py:195-244,
     one segment).  Load is the smooth estimator while the noise is active
-    (stddev > 1e-6), else the hard count; 0 outside training."""
+    (stddev > 1e-6), else the hard count; 0 outside training.  `reduce`
+    (differentiable) turns this rank's importance and load into the
+    global batch's before cv^2 (data parallelism; gating.py:200-242 sees
+    the whole batch)."""
     if not train:
         return torch.zeros((), device=gate.clean_logits.device)
     importance = gate_importance(gate)
@@ -146,7 +157,7 @@ def moe_aux_loss(gate: GateOutput, top_k: int, num_experts: int,
                              top_k).sum(0)
     else:
         load = gate_load_counts(gate)
-    return cv_squared(importance) + cv_squared(load)
+    return _cv_sum(importance, load, reduce)
 
 
 def noisy_gate_init(d_gate: int, num_experts: int, gen: torch.Generator):
@@ -203,12 +214,13 @@ def noisy_gate(
 
 
 def moe_aux_loss_noisy(gate: GateOutput, top_k: int, num_experts: int,
-                       train: bool) -> torch.Tensor:
+                       train: bool, reduce=None) -> torch.Tensor:
     """cv^2(importance) + cv^2(load) for the learned-noise gate
     (gating.py:368-382; reference gates.py:249-262): importance is the
     dense gates' column sum; load the smooth estimator with the
     per-element stddev (clamped at 1e-20) when top_k < E, else the count
-    of nonzero gates per expert; 0 outside training."""
+    of nonzero gates per expert; 0 outside training.  `reduce` as
+    moe_aux_loss's."""
     if not train:
         return torch.zeros((), device=gate.clean_logits.device)
     importance = gate.gates.sum(0)
@@ -218,4 +230,4 @@ def moe_aux_loss_noisy(gate: GateOutput, top_k: int, num_experts: int,
                              gate.top_logits, top_k).sum(0)
     else:
         load = (gate.gates > 0).sum(0).float()
-    return cv_squared(importance) + cv_squared(load)
+    return _cv_sum(importance, load, reduce)

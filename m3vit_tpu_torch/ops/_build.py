@@ -24,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -62,8 +62,17 @@ def kernel_names():
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
-def count_launch(name: str) -> None:
+#: FLOP tallies open in ``utils/tracing.flops_of`` (kernel name -> FLOPs):
+#: a dispatch mode cannot see into a kernel launch, so each wrapper states
+#: its FLOPs here, counted as FlopCounterMode counts its plain version
+flop_tallies: List[Dict[str, float]] = []
+
+
+def count_launch(name: str, flops: float = 0.0) -> None:
+    """One launch of kernel `name`, doing `flops` products' FLOPs."""
     launches[name] = launches.get(name, 0) + 1
+    for tally in flop_tallies:
+        tally[name] = tally.get(name, 0.0) + float(flops)
 
 
 def _nvcc() -> str:

@@ -62,15 +62,19 @@ BWD_TILE_M, BWD_TILE_N, BWD_HIDDEN_TILE, BWD_KSTEP = (
 
 
 def fused_expert_ffn_plain(h, w1, b1, w2, b2, dropout_rate: float = 0.0,
-                           rng=None) -> torch.Tensor:
+                           rng=None, token_major: bool = False
+                           ) -> torch.Tensor:
     """Plain PyTorch version with the kernel's numerics: both products
     accumulate in f32, bias and exact-erf GELU in f32, the hidden activation
     rounded to h's dtype before the second product; output in h's dtype.
     dropout_rate > 0 drops the rounded hidden activation with masks from
     `rng` (training only; m3vit_tpu/moe/dispatch.py:331-333, the kernel
-    has no dropout)."""
+    has no dropout); token_major says h's dim 1 holds the batch's tokens
+    in order (the dense MLP's [1, B*N, d]), where data parallelism draws
+    the global batch's mask."""
     a = torch.bmm(h.float(), w1.float().transpose(1, 2)) + b1.float()[:, None]
-    a = dropout(F.gelu(a).to(h.dtype), dropout_rate, rng)
+    a = dropout(F.gelu(a).to(h.dtype), dropout_rate, rng,
+                batch_dim=1 if token_major else None)
     o = torch.bmm(a.float(), w2.float().transpose(1, 2)) + b2.float()[:, None]
     return o.to(h.dtype)
 
@@ -134,6 +138,14 @@ def fused_dense_mlp(x, w1, b1, w2, b2, *, use_kernels: bool = True):
     out = fused_expert_ffn(h, w1[None], b1[None], w2[None], b2[None],
                            use_kernels=use_kernels)
     return out.reshape(x.shape)
+
+
+def ffn_flops(E: int, C: int, d: int, hidden: int,
+              backward: bool = False) -> float:
+    """The products' FLOPs of the FFN kernels on [E, C, d] x hidden: the
+    forward's two (K3, K5, K7), or the backward's hidden recompute and its
+    four (K4, K6), as FlopCounterMode counts their plain versions."""
+    return (10.0 if backward else 4.0) * E * C * d * hidden
 
 
 def ffn_route(d: int, hidden: int) -> str:
@@ -219,7 +231,7 @@ def expert_ffn_fwd(h, w1, b1, w2, b2) -> torch.Tensor:
         fn, h.device, h.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(), ptr, E, Ct, d, Hd)
     _build.check(err, NAME, f"h {tuple(h.shape)}, hidden {Hd}")
-    _build.count_launch(NAME)
+    _build.count_launch(NAME, ffn_flops(E, Ct, d, Hd))
     return out
 
 
@@ -299,7 +311,7 @@ def expert_ffn_bwd(h, w1, b1, w2, g, plan: BwdPlan = None):
         db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), scratch.data_ptr(),
         E, Ct, d, Hd, plan.splits, *plan.grids, sms)
     _build.check(err, BWD_NAME, f"h {tuple(h.shape)}, hidden {Hd}")
-    _build.count_launch(BWD_NAME)
+    _build.count_launch(BWD_NAME, ffn_flops(E, Ct, d, Hd, True))
     return dh, dw1, db1, dw2, db2
 
 
@@ -355,7 +367,7 @@ def expert_ffn_q_fwd(h, w1, s1, b1, w2, s2, b2) -> torch.Tensor:
         b1.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), E, Ct, d, Hd)
     _build.check(err, Q_NAME, f"h {tuple(h.shape)}, hidden {Hd}")
-    _build.count_launch(Q_NAME)
+    _build.count_launch(Q_NAME, ffn_flops(E, Ct, d, Hd))
     return out
 
 

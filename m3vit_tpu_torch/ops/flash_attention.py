@@ -135,6 +135,14 @@ def flash_attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
                                  use_kernels)
 
 
+def attention_flops(B: int, N: int, H: int, d: int,
+                    backward: bool = False) -> float:
+    """The products' FLOPs of K1 (QK^T and PV over all N keys; masked keys
+    included, as the plain version computes them) or of K2 (those two
+    recomputed and dV, dP, dQ, dK: 10 / 4 of them)."""
+    return (10.0 if backward else 4.0) * B * H * N * N * d
+
+
 def _check_qkv(name: str, qkv: torch.Tensor, num_heads: int, valid_len):
     """Raises on what the kernels do not take; returns (B, N, C, d, valid)."""
     if not qkv.is_cuda:
@@ -173,7 +181,7 @@ def flash_attention_fwd(qkv: torch.Tensor, num_heads: int, scale: float,
         out.data_ptr(), lse.data_ptr(), B, N, num_heads, d, valid,
         float(scale))
     _build.check(err, NAME, f"qkv {tuple(qkv.shape)}, heads {num_heads}")
-    _build.count_launch(NAME)
+    _build.count_launch(NAME, attention_flops(B, N, num_heads, d))
     return out, lse
 
 
@@ -206,5 +214,5 @@ def flash_attention_bwd(qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
         o.data_ptr(), lse.data_ptr(), dout.data_ptr(), stats.data_ptr(),
         dqkv.data_ptr(), B, N, num_heads, d, valid, float(scale))
     _build.check(err, BWD_NAME, f"qkv {tuple(qkv.shape)}, heads {num_heads}")
-    _build.count_launch(BWD_NAME)
+    _build.count_launch(BWD_NAME, attention_flops(B, N, num_heads, d, True))
     return dqkv

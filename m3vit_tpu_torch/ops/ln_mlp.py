@@ -32,7 +32,8 @@ import torch.nn.functional as F
 
 from m3vit_tpu_torch.ops import _build
 from m3vit_tpu_torch.ops.expert_ffn import (_check, _f32_aligned, _scratch,
-                                            _scratch_bytes, bwd_plan)
+                                            _scratch_bytes, bwd_plan,
+                                            ffn_flops)
 
 NAME = "ln_mlp_fwd"
 BWD_NAME = "ln_mlp_bwd"
@@ -162,7 +163,7 @@ def ln_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, eps: float = EPS):
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         out.data_ptr(), ptr, S, d, H, eps)
     _build.check(err, NAME, f"x {tuple(x.shape)}, hidden {H}")
-    _build.count_launch(NAME)
+    _build.count_launch(NAME, ffn_flops(1, S, d, H))
     return out
 
 
@@ -199,5 +200,5 @@ def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, gr, eps: float = EPS):
         dw2.data_ptr(), db2.data_ptr(), scratch.data_ptr(), S, d, H,
         plan.splits, *plan.grids, sms, eps)
     _build.check(err, BWD_NAME, f"x {tuple(x.shape)}, hidden {H}")
-    _build.count_launch(BWD_NAME)
+    _build.count_launch(BWD_NAME, ffn_flops(1, S, d, H, True))
     return dx, dgb[0], dgb[1], dw1, db1, dw2, db2

@@ -11,6 +11,12 @@ parameter names), the optimizer's state, the train step's call counter
 (3) indices are kept.  Saving is crash-safe: the file is written whole to
 a temporary name and then moved over the old one with ``os.replace``, so a
 death mid-save never destroys the only copy of an index.
+
+Under expert parallelism (a ``parallel`` layout passed as ``layout``) a
+checkpoint is still the one-card state: every rank gathers the expert
+banks (and their optimizer state) over its expert group, rank 0 writes,
+and a restore cuts each bank to the restoring rank's shard, so a run
+resumes at any n_expert and a one-card checkpoint starts a parallel run.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import re
 from typing import Dict, List, Optional
 
 import torch
+
+from m3vit_tpu_torch import parallel
 
 _PT = re.compile(r"^(\d+)\.pt$")
 
@@ -51,19 +59,23 @@ def latest_index(directory: str) -> Optional[int]:
 def save_checkpoint(directory: str, index: int, model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     train_step_calls: int = 0, extra: Optional[Dict] = None,
-                    max_to_keep: int = 3) -> str:
+                    max_to_keep: int = 3, layout=None) -> str:
     """Writes checkpoint `index` (overwriting it, crash-safe) and its meta
     sidecar, then removes all but the newest `max_to_keep` indices;
-    returns the file's path."""
-    os.makedirs(directory, exist_ok=True)
+    returns the file's path.  With a parallel `layout` every rank must
+    call it: the expert banks are gathered, and rank 0 writes."""
     meta = {"epoch": index, **(extra or {})}
-    payload = {
-        "model": model.state_dict(),
-        "optimizer": None if optimizer is None else optimizer.state_dict(),
-        "train_step_calls": int(train_step_calls),
-        "meta": meta,
-    }
     path = os.path.join(directory, f"{index}.pt")
+    if layout is not None:
+        sd, osd = parallel.full_state(model, optimizer, layout)
+        if layout.rank != 0:
+            return path
+    else:
+        sd = model.state_dict()
+        osd = None if optimizer is None else optimizer.state_dict()
+    os.makedirs(directory, exist_ok=True)
+    payload = {"model": sd, "optimizer": osd,
+               "train_step_calls": int(train_step_calls), "meta": meta}
     _atomic_write(path, lambda tmp: torch.save(payload, tmp))
 
     def write_meta(tmp):
@@ -82,18 +94,23 @@ def save_checkpoint(directory: str, index: int, model: torch.nn.Module,
 
 def restore_checkpoint(directory: str, model: torch.nn.Module,
                        optimizer: Optional[torch.optim.Optimizer] = None,
-                       index: Optional[int] = None) -> Optional[Dict]:
+                       index: Optional[int] = None,
+                       layout=None) -> Optional[Dict]:
     """Loads checkpoint `index` (the newest when None) into `model` (strict)
     and `optimizer`, onto the model's device; returns its meta dict with
-    ``train_step_calls`` added, or None when there is no checkpoint."""
+    ``train_step_calls`` added, or None when there is no checkpoint.  With
+    a parallel `layout` the expert banks are cut to the rank's shard."""
     index = latest_index(directory) if index is None else index
     if index is None:
         return None
     device = next(model.parameters()).device
     payload = torch.load(os.path.join(directory, f"{index}.pt"),
                          map_location=device, weights_only=True)
-    model.load_state_dict(payload["model"], strict=True)
-    if optimizer is not None and payload["optimizer"] is not None:
-        optimizer.load_state_dict(payload["optimizer"])
+    sd, osd = payload["model"], payload["optimizer"]
+    if layout is not None:
+        sd, osd = parallel.shard_state(model, optimizer, sd, osd, layout)
+    model.load_state_dict(sd, strict=True)
+    if optimizer is not None and osd is not None:
+        optimizer.load_state_dict(osd)
     return {**payload["meta"],
             "train_step_calls": int(payload["train_step_calls"])}

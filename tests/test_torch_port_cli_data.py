@@ -541,12 +541,18 @@ def test_cli_eval_matches_jax_evaluate_online(trees, tmp_path):
     _assert_results_close({k: got[k] for k in ref}, ref, 1e-4)
 
 
-def test_cli_stop_and_resume_is_bitwise(trees, tmp_path):
+@pytest.fixture(scope="module")
+def full_run(trees, tmp_path_factory):
+    """The tiny config's uninterrupted CLI run (two epochs of two steps)."""
+    exp = _tiny_exp(tmp_path_factory.mktemp("full"))
+    return exp, _cli(trees, exp, "--run_name", "full")
+
+
+def test_cli_stop_and_resume_is_bitwise(trees, full_run):
     """A run stopped by --stop_after_steps mid-epoch and then --resume'd
     ends with the uninterrupted run's weights, BN statistics, optimizer
     state and step counter, bit for bit (gate noise on)."""
-    exp = _tiny_exp(tmp_path)
-    full = _cli(trees, exp, "--run_name", "full")
+    exp, full = full_run
     stop = _cli(trees, exp, "--run_name", "split", "--stop_after_steps", "3")
     assert stop["stopped_at_step"] == 3 and stop["steps_run"] == 3
     rest = _cli(trees, exp, "--run_name", "split", "--resume")
@@ -600,3 +606,73 @@ def test_cli_refuses_unported_flags(trees, tmp_path, flag, takes_value):
             "--device", "cpu", flag] + (["1"] if takes_value else [])
     with pytest.raises(NotImplementedError, match=flag):
         cli.main(argv)
+
+
+def test_cli_parallel_world_of_one_matches_one_process(trees, full_run):
+    """--n_data 1 --n_expert 1 --a2a_chunks 2 without torchrun: a Gloo
+    world of one rank, the exchange path, SyncBN, the gradient
+    all-reduces and the gathered checkpoints; stopped after 2 steps and
+    --resume'd, it ends where the one-process run ends (1e-5: the
+    statistics summed in another order) and leaves the process group."""
+    import torch.distributed as dist
+
+    exp, solo = full_run
+    mesh = ("--n_data", "1", "--n_expert", "1", "--a2a_chunks", "2")
+    stop = _cli(trees, exp, "--run_name", "pg", *mesh,
+                "--stop_after_steps", "2")
+    assert stop["stopped_at_step"] == 2 and not dist.is_initialized()
+    mlp = stop["state"]["model"].backbone.blocks[1].mlp
+    assert mlp.layout is stop["state"]["layout"] and mlp.a2a_chunks == 2
+    rest = _cli(trees, exp, "--run_name", "pg", *mesh, "--resume")
+    assert rest["steps_run"] == solo["steps_run"] - 2
+    ref = solo["state"]["model"].state_dict()
+    for k, v in rest["state"]["model"].state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            assert int(v) == int(ref[k]), k
+            continue
+        np.testing.assert_allclose(v.numpy(), ref[k].numpy(), atol=1e-5,
+                                   err_msg=k)
+
+
+def test_cli_one_by_one_with_accumulation(trees, tmp_path):
+    """--one_by_one with accumulation_steps 2: four one-by-one calls make
+    two optimizer steps (the schedule counts optimizer steps)."""
+    exp = _tiny_exp(tmp_path, accumulation_steps=2)
+    out = _cli(trees, exp, "--run_name", "obo", "--one_by_one",
+               "--stop_after_steps", "4")
+    assert out["stopped_at_step"] == 4
+    step, opt = out["state"]["train_step"], out["state"]["optimizer"]
+    assert step.step == 4
+    assert all(torch.isfinite(p).all()
+               for p in out["state"]["model"].parameters())
+    assert {len(st) for st in opt.state_dict()["state"].values()} == {1}
+
+
+def test_cli_tracing_flags(trees, tmp_path):
+    """--forward_hook writes every layer's summary (the port's module
+    paths) to <output_dir>/forward_hook.log; --flops and --time report a
+    forward on one image (flops_of's count) and end the run;
+    --profile_dir writes a torch.profiler trace of the first steps."""
+    import json
+
+    from m3vit_tpu_torch.utils.tracing import flops_of, load_trace
+
+    exp = _tiny_exp(tmp_path)
+    out = _cli(trees, exp, "--run_name", "trace", "--forward_hook",
+               "--flops", "--time")
+    assert out["steps_run"] == 0 and out["forward_ms"] > 0
+    traces = load_trace(out["forward_hook"])
+    assert {"backbone.patch_embed", "backbone.blocks.1.mlp",
+            "decoders.semseg.conv_0",
+            "decoders.semseg.syncbn_fc_0"} <= set(traces)
+    assert traces["decoders.semseg.conv_0"]["shape"][-1] == 256
+    model = out["state"]["model"].eval()
+    with torch.no_grad():
+        assert out["flops"] == flops_of(
+            lambda: model(torch.zeros(1, 3, 32, 32)))
+    prof = tmp_path / "prof"
+    run = _cli(trees, exp, "--run_name", "prof", "--profile_dir", str(prof),
+               "--stop_after_steps", "3")
+    assert run["stopped_at_step"] == 3
+    events = json.loads((prof / "trace.json").read_text())["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)

@@ -145,3 +145,124 @@ def test_bwd_plan_covers_every_token_step_once(E, Ct, d, Hd):
     if (E, Ct, d, Hd) in FLAGSHIP_BWD:
         # the hidden pass, half of a call's time, fills every SM many times
         assert plan.tiles[0] >= 10 * sms
+
+
+# ---- FLOP counts: utils/tracing.flops_of ----------------------------------
+
+def _plain_calls():
+    """Each kernel's plain version on small inputs, with the FLOPs its
+    wrapper states for the same shapes (ops/_build.count_launch)."""
+    from m3vit_tpu_torch.ops import expert_ffn as ef
+    from m3vit_tpu_torch.ops import flash_attention as fa
+    from m3vit_tpu_torch.ops import ln_mlp as lm
+
+    rng = np.random.RandomState(8)
+
+    def a(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    B, N, H, Dh = 2, 40, 2, 32
+    E, C, d, Hd = 3, 16, 32, 64
+    qkv, o, lse, dout = a(B, N, 3 * H * Dh), a(B, N, H * Dh), a(B, H, N), \
+        a(B, N, H * Dh)
+    h, w1, b1, w2, b2, g = a(E, C, d), a(E, Hd, d), a(E, Hd), a(E, d, Hd), \
+        a(E, d), a(E, C, d)
+    q1 = torch.randint(-127, 128, (E, Hd, d), dtype=torch.int8)
+    q2 = torch.randint(-127, 128, (E, d, Hd), dtype=torch.int8)
+    x, gam, bet = a(C, d), a(d), a(d)
+    return {
+        "flash_attention_fwd": (lambda: fa.flash_attention_qkv_plain(
+            qkv, H, 0.1, valid_len=30), fa.attention_flops(B, N, H, Dh)),
+        "flash_attention_bwd": (lambda: fa.flash_attention_qkv_bwd_plain(
+            qkv, o, lse, dout, H, 0.1), fa.attention_flops(B, N, H, Dh,
+                                                           True)),
+        "expert_ffn_fwd": (lambda: ef.fused_expert_ffn_plain(
+            h, w1, b1, w2, b2), ef.ffn_flops(E, C, d, Hd)),
+        "expert_ffn_bwd": (lambda: ef.expert_ffn_bwd_plain(
+            h, w1, b1, w2, g), ef.ffn_flops(E, C, d, Hd, True)),
+        "expert_ffn_q_fwd": (lambda: ef.quantized_expert_ffn_plain(
+            h, q1, b1.abs(), b1, q2, b2.abs(), b2), ef.ffn_flops(E, C, d,
+                                                                 Hd)),
+        "ln_mlp_fwd": (lambda: lm.ln_mlp_residual_plain(
+            x, gam, bet, w1[0], b1[0], w2[0], b2[0]),
+            ef.ffn_flops(1, C, d, Hd)),
+        "ln_mlp_bwd": (lambda: lm.ln_mlp_residual_bwd_plain(
+            x, gam, bet, w1[0], b1[0], w2[0], g[0]),
+            ef.ffn_flops(1, C, d, Hd, True)),
+    }
+
+
+@pytest.mark.parametrize("kernel", sorted(_plain_calls()))
+def test_kernel_flops_are_the_plain_versions(kernel):
+    """Each kernel wrapper's stated FLOPs (what flops_of adds for a launch
+    on the card) equal FlopCounterMode's count of its plain version on the
+    same shapes, so --flops counts the same on the card as on the CPU."""
+    from m3vit_tpu_torch.ops import _build
+    from m3vit_tpu_torch.utils.tracing import flops_of
+
+    fn, stated = _plain_calls()[kernel]
+    assert kernel in _build.kernel_names()
+    assert flops_of(fn) == stated > 0
+    before = _build.launches.get(kernel, 0)
+    assert flops_of(lambda: _build.count_launch(kernel, stated)) == stated
+    assert _build.launches[kernel] == before + 1
+    _build.launches[kernel] = before
+    assert not _build.flop_tallies
+
+
+def test_flops_of_model_is_the_analytic_count():
+    """flops_of on a tiny MoE model's forward on one image without autograd
+    (plain path, eval, two task passes), as the CLI's --flops counts it:
+    every product and convolution counted once --
+    the patch embedding, qkv, attention (QK^T, PV), projection, dense MLP,
+    router, the experts' padded capacity, and the heads' five convs."""
+    from m3vit_tpu_torch.models import build_flagship
+    from m3vit_tpu_torch.moe.dispatch import compute_capacity
+    from m3vit_tpu_torch.tasks import parse_task_dictionary
+    from m3vit_tpu_torch.utils.tracing import flops_of
+
+    tasks = parse_task_dictionary("PASCALContext", {
+        "include_semseg": True, "include_normals": True})[0]
+    img, C, E, K, Hh = 32, 64, 4, 2, 2
+    model, _ = build_flagship(img=img, embed=C, depth=2, heads=Hh,
+                              experts=E, top_k=K, tasks=tasks,
+                              dtype=torch.float32, device="cpu")
+    x = torch.randn(1, 3, img, img)
+    n = (img // 16) ** 2 + 1
+    attn = 2 * n * C * 3 * C + 4 * n * n * C + 2 * n * C * C
+    dense = attn + 2 * n * C * 4 * C * 2
+    cap = compute_capacity(n, K, E, model.backbone.blocks[1]
+                           .mlp.eval_capacity_factor)
+    moe = attn + 2 * n * C * E + 4 * E * cap * C * C
+    patch = 2 * (n - 1) * 3 * 16 * 16 * C
+    head = 0
+    side = img // 16
+    for i in range(4):
+        head += 2 * (side * side) * (C if i == 0 else 256) * 256 * 9
+        side *= 2 if i < 3 else 1
+    per_task = patch + dense + moe + head
+    with torch.no_grad():   # as --flops runs it: no lse for a backward
+        counted = flops_of(lambda: model(x))
+    classes = sum(2 * side * side * 256 * tk.num_output for tk in tasks)
+    assert counted == len(tasks) * per_task + classes
+
+
+def test_module_tree_lists_every_parameter_and_buffer():
+    """utils/tracing.module_tree: one line a module (its name and class,
+    indented by depth) and one a parameter or buffer with its shape and
+    dtype, every one of the model's."""
+    from m3vit_tpu_torch.models import build_flagship
+    from m3vit_tpu_torch.tasks import parse_task_dictionary
+    from m3vit_tpu_torch.utils.tracing import module_tree
+
+    tasks = parse_task_dictionary("PASCALContext",
+                                  {"include_semseg": True})[0]
+    model, _ = build_flagship(img=32, embed=64, depth=2, heads=2, experts=4,
+                              top_k=2, tasks=tasks, device="cpu")
+    lines = module_tree(model).splitlines()
+    assert lines[0] == "MultiTaskModel (MultiTaskModel)"
+    assert "  backbone (VisionTransformerMoE)" in lines
+    assert "      proj (Conv2d)" in lines
+    assert "        weight: (64, 3, 16, 16) float32" in lines
+    entries = [ln for ln in lines if ": (" in ln]
+    assert len(entries) == len(model.state_dict())

@@ -16,6 +16,7 @@ f32 expression in another order, 1e-4 for model outputs (the JAX
 package's own, tests/test_torch_port_model.py).
 """
 
+import os
 from pathlib import Path
 
 import numpy as np
@@ -54,8 +55,12 @@ from m3vit_tpu_torch.train.step import (
     make_single_task_eval_step,
     make_train_step,
 )
+from m3vit_tpu_torch.models.vit_moe import GATE_INTERNALS_ENV, MoEMlp
 from m3vit_tpu_torch.utils.convert import jax_variables_to_state_dict
+from m3vit_tpu_torch.utils.tracing import (dump_trace, load_trace,
+                                           numeric_diff, trace_model)
 from tests.jax_fast_compile import FAST_COMPILE, fast_jit as _jit
+from tests.torch_port_replay import capture_bn, head_masks, replay_head_masks
 
 ROOT = Path(__file__).resolve().parent.parent
 t = torch.from_numpy
@@ -439,8 +444,12 @@ def moe_run():
     0.5 so that eval drops slots) through JAX in one program, each part
     from the same state: the eval step with stats, a single-task eval, the
     one-by-one step (its per-task gradient programs, summed, the
-    reference CLI's batch-stat merge, then the update) and a joint train
-    step with the analysis metrics."""
+    reference CLI's batch-stat merge, then the update, and the signs of
+    each task pass's head BatchNorm outputs), a joint train step with the
+    analysis metrics and the gate internals (M3VIT_LOG_GATE_INTERNALS
+    set while it traces), and its updated parameters; and the outputs of
+    the patch embedding, block 0 and the first head's first conv in
+    eval."""
     p = _config("vit_moe_small_multi_task.yml", moe_eval_capacity_factor=0.5)
     jp = _jax_config(p)
     names = [tk.name for tk in jp["TASKS"]]
@@ -455,6 +464,7 @@ def moe_run():
     single_eval = jstep.make_single_task_eval_step(jmodel, names[-1])
     train_step = jstep.make_train_step(jmodel, names, lfns, WEIGHTS,
                                        donate=False, analysis_metrics=True)
+    traced = ("patch_embed", "block_0", "conv_0")
 
     def run(v, batch):
         state = TrainState.create(apply_fn=jmodel.apply, params=v["params"],
@@ -469,13 +479,31 @@ def moe_run():
             metrics[tk] = m
             merged[f"decoders_{tk}"] = bs[f"decoders_{tk}"]
         obo = apply_fn(state, grads, merged)
-        _, analysis = train_step(state, batch, rng)
+        joint, analysis = train_step(state, batch, rng)
+        # each head's BatchNorm outputs in its own task pass (the joint
+        # forward's passes are the one-by-one step's)
+        bn = jmodel.apply(
+            {"params": v["params"], "batch_stats": v["batch_stats"]},
+            batch["image"], train=True, rngs={"gate_noise": rng},
+            mutable=["batch_stats"],
+            capture_intermediates=capture_bn)[1]["intermediates"]
+        inter = jmodel.apply(
+            v, batch["image"], train=False, mutable=["intermediates"],
+            capture_intermediates=lambda m, _: m.name in traced)[1]
         return (pred, stats, single, grads, metrics,
                 {"params": obo.params, "batch_stats": obo.batch_stats},
-                analysis)
+                bn, joint.params, inter["intermediates"], analysis)
 
-    out = _to_np(jax.jit(run, compiler_options=FAST_COMPILE)(
-        v, {k: jnp.asarray(a) for k, a in batch.items()}))
+    prev = os.environ.get(GATE_INTERNALS_ENV)
+    os.environ[GATE_INTERNALS_ENV] = "1"
+    try:
+        out = _to_np(jax.jit(run, compiler_options=FAST_COMPILE)(
+            v, {k: jnp.asarray(a) for k, a in batch.items()}))
+    finally:
+        if prev is None:
+            del os.environ[GATE_INTERNALS_ENV]
+        else:
+            os.environ[GATE_INTERNALS_ENV] = prev
     return p, names, batch, v, out
 
 
@@ -485,12 +513,13 @@ def test_moe_model_keys_match_reference_export(moe_run):
     _assert_keys_match_reference_export(sd, v, names, len(names))
 
 
-def test_eval_step_with_stats_matches_jax(moe_run):
+def test_eval_step_with_stats_matches_jax(moe_run, monkeypatch):
     """make_eval_step(with_stats): every task's output (1e-4) and the MoE
     stats (dropped_slot_fraction 1e-7 absolute, sums 1e-5 relative, counts
     and the load histogram exactly); eval cf 0.5 drops slots, which the
     guard refuses.  make_single_task_eval_step too."""
     p, names, batch, v, (jpred, jstats, jsingle, *_rest) = moe_run
+    monkeypatch.setenv(GATE_INTERNALS_ENV, "1")
     model, _ = _port_model(p, v, names, len(names))
     tb = {"image": _nchw(batch["image"])}
     pred, stats = make_eval_step(model, names, with_stats=True)(tb)
@@ -528,14 +557,18 @@ def test_one_by_one_step_matches_jax(moe_run):
     relative), the gradients summed over the task passes (1e-4 of each
     tensor's largest magnitude: f32 sums in another order), and the
     parameters and BN running statistics after the SGD update (2e-6, as
-    the joint step's test)."""
-    p, names, batch, v, (_, _, _, jgrads, jmetrics, jnew, _) = moe_run
+    the joint step's test).  The heads' ReLU masks are JAX's, replayed
+    (tests/torch_port_replay.py)."""
+    p, names, batch, v, (_, _, _, jgrads, jmetrics, jnew, jbn,
+                               *_rest) = moe_run
     model, _ = _port_model(p, v, names, len(names))
     opt, schedule = build_optimizer(model.parameters(), OPT,
                                     steps_per_epoch=2)
     step = make_one_by_one_train_step(model, names, tsch.build_loss_fns(p),
                                       WEIGHTS, opt, schedule)
-    metrics = step(_train_batch(batch))
+    masks = head_masks(jbn, names)
+    with replay_head_masks(model, masks):
+        metrics = step(_train_batch(batch))
     for n in names:
         np.testing.assert_allclose(metrics[f"loss_{n}"].item(),
                                    float(jmetrics[n][f"loss_{n}"]),
@@ -552,11 +585,46 @@ def test_one_by_one_step_matches_jax(moe_run):
                      2e-6, "after the step:")
 
 
-def test_analysis_metrics_match_jax(moe_run):
-    """make_train_step(analysis_metrics=True): the analysis metrics and the
+def test_head_grads_of_joint_step_equal_one_by_one(moe_run):
+    """A head's gradient in the joint step (one backbone pass per task)
+    equals its gradient in its own task pass alone, bit for bit, in each
+    package: JAX's joint step updates every head's parameters as its
+    one-by-one step does, and so does the port's (ROADMAP.md queue 3:
+    neither side moves the heads' gradients with the task passes; the
+    packages' gap there is a head ReLU mask rounded to opposite signs,
+    tests/torch_port_replay.py)."""
+    p, names, batch, v, (*_r, jobo, _, jjoint, _, _) = moe_run
+    for n in names:
+        key = f"decoders_{n}"
+        for (path, a), b in zip(
+                jax.tree_util.tree_leaves_with_path(jjoint[key]),
+                jax.tree_util.tree_leaves(jobo["params"][key])):
+            np.testing.assert_array_equal(a, b, err_msg=f"{key}{path}")
+    grads = {}
+    for kind in ("joint", "one_by_one"):
+        model, _ = _port_model(p, v, names, len(names))
+        opt, schedule = build_optimizer(model.parameters(), OPT,
+                                        steps_per_epoch=2)
+        make = make_train_step if kind == "joint" else \
+            make_one_by_one_train_step
+        make(model, names, tsch.build_loss_fns(p), WEIGHTS, opt,
+             schedule)(_train_batch(batch))
+        grads[kind] = {k: prm.grad for k, prm in model.named_parameters()
+                       if k.startswith("decoders.")}
+    assert set(grads["joint"]) == set(grads["one_by_one"])
+    for k, g in grads["joint"].items():
+        torch.testing.assert_close(g, grads["one_by_one"][k], rtol=0,
+                                   atol=0, msg=k)
+
+
+def test_analysis_metrics_match_jax(moe_run, monkeypatch):
+    """make_train_step(analysis_metrics=True): the analysis metrics, the
+    gate internals (M3VIT_LOG_GATE_INTERNALS set on both sides) and the
     losses of one joint step at gate noise 0 (1e-5 relative; the load
     histogram exactly); without the flag the step returns none of them."""
     p, names, batch, v, (*_rest, janalysis) = moe_run
+    monkeypatch.setenv(GATE_INTERNALS_ENV, "1")
+    assert "topk_group_count_mean" in janalysis
     model, _ = _port_model(p, v, names, len(names))
     opt, schedule = build_optimizer(model.parameters(), OPT,
                                     steps_per_epoch=2)
@@ -573,6 +641,164 @@ def test_analysis_metrics_match_jax(moe_run):
     assert "gate_entropy_mean" not in make_train_step(
         model, names, tsch.build_loss_fns(p), WEIGHTS, opt,
         schedule)(_train_batch(batch))
+
+
+def test_gate_internals_need_the_variable(monkeypatch):
+    """The gate internals are computed only when M3VIT_LOG_GATE_INTERNALS
+    is set (to 1 / true / yes / on); with E % 4 != 0 the groups are single
+    experts, with the JAX package's warning, so the group count is the
+    number of distinct experts, K."""
+    rng = np.random.RandomState(2)
+    logits = t(rng.randn(12, 6).astype(np.float32))
+    gate = tgate.noisy_vmoe_gate(logits, torch.eye(6), top_k=3)
+    monkeypatch.delenv(GATE_INTERNALS_ENV, raising=False)
+    assert "gate_pmax_sum" not in MoEMlp.analysis_stats(gate)
+    monkeypatch.setenv(GATE_INTERNALS_ENV, "off")
+    assert "gate_pmax_sum" not in MoEMlp.analysis_stats(gate)
+    monkeypatch.setenv(GATE_INTERNALS_ENV, "yes")
+    with pytest.warns(UserWarning, match="group_size=1"):
+        st = MoEMlp.analysis_stats(gate)
+    assert float(st["topk_group_count_sum"]) == 12 * 3
+    probs = torch.softmax(logits, -1)
+    np.testing.assert_allclose(float(st["gate_pmax_sum"]),
+                               float(probs.max(-1).values.sum()), rtol=1e-6)
+
+
+def test_one_by_one_accumulation_matches_jax():
+    """--one_by_one with accumulation_steps 2 over four batches: the port's
+    one-by-one step against the JAX package's per-task gradient programs
+    and apply (make_one_by_one_train_step) under optax.MultiSteps(2), as
+    the JAX CLI runs them (m3vit_tpu/cli/train.py:796-812: the task
+    gradients of a batch summed, each decoder's statistics from its own
+    pass), on a two-task toy model (a linear map and a statistic per
+    task): the optimizer steps on the mean of two batches' summed task
+    gradients, every second batch, at the schedule's lr of the optimizer
+    step; parameters and statistics after every batch to 1e-6 (SGD, as
+    test_optimizer_trajectory_matches_optax)."""
+    from flax import linen as fnn
+
+    names, D = ["a", "b"], 6
+    cfg = {"optimizer": "sgd", "scheduler": "poly", "epochs": 2,
+           "accumulation_steps": 2,
+           "optimizer_kwargs": {"lr": 0.1, "momentum": 0.9,
+                                "weight_decay": 1e-2}}
+    rng = np.random.RandomState(21)
+    w0 = rng.randn(len(names), D).astype(np.float32)
+    batches = [{"image": rng.randn(3, D).astype(np.float32),
+                **{n: rng.randn(3).astype(np.float32) for n in names}}
+               for _ in range(4)]
+
+    class JToy(fnn.Module):
+        @fnn.compact
+        def __call__(self, x, train=False, single_task=None):
+            w = self.param("w", lambda k: jnp.asarray(w0))
+            i = names.index(single_task)
+            pred = x @ w[i]
+            stat = self.variable("batch_stats", f"decoders_{single_task}",
+                                 lambda: jnp.zeros(()))
+            if train:
+                stat.value = 0.9 * stat.value + 0.1 * pred.mean()
+            return {single_task: pred}, jnp.zeros(()), {}
+
+    class Toy(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(t(w0.copy()))
+            for n in names:
+                self.register_buffer(f"stat_{n}", torch.zeros(()))
+
+        def forward(self, x, single_task=None, noise=None):
+            pred = x @ self.w[names.index(single_task)]
+            if self.training:
+                buf = getattr(self, f"stat_{single_task}")
+                buf.mul_(0.9).add_(0.1 * pred.detach().mean())
+            return {single_task: pred}, torch.zeros(()), {}
+
+    def mse(pred, gt):
+        return ((pred - gt) ** 2).mean()
+
+    weights = {"a": 1.0, "b": 2.0}
+    jmodel = JToy()
+    variables = jmodel.init(jax.random.key(0), jnp.zeros((3, D)),
+                            single_task="a")
+    for n in names[1:]:
+        variables = {**variables, "batch_stats": {
+            **variables["batch_stats"],
+            **jmodel.init(jax.random.key(0), jnp.zeros((3, D)),
+                          single_task=n)["batch_stats"]}}
+    grad_fns, apply_fn = jstep.make_one_by_one_train_step(
+        jmodel, names, {n: mse for n in names}, weights, cv_weight=0.0)
+    state = TrainState.create(
+        apply_fn=jmodel.apply, params=variables["params"],
+        tx=jax_build_optimizer(cfg, steps_per_epoch=4),
+        batch_stats=variables["batch_stats"])
+    model = Toy()
+    opt, schedule = build_optimizer(model.parameters(), cfg,
+                                    steps_per_epoch=4)
+    step = make_one_by_one_train_step(model, names, {n: mse for n in names},
+                                      weights, opt, schedule, cv_weight=0.0,
+                                      accumulation_steps=2)
+    key = jax.random.key(1)
+    for i, b in enumerate(batches):
+        jb = {k: jnp.asarray(a) for k, a in b.items()}
+        grads, merged = None, {}
+        for n in names:
+            g, _, bs = grad_fns[n](state, jb, key)
+            grads = g if grads is None else jax.tree.map(jnp.add, grads, g)
+            merged[f"decoders_{n}"] = bs[f"decoders_{n}"]
+        state = apply_fn(state, grads, merged)
+        metrics = step({k: t(a.copy()) for k, a in b.items()})
+        np.testing.assert_allclose(model.w.detach().numpy(),
+                                   np.asarray(state.params["w"]), atol=1e-6,
+                                   err_msg=f"batch {i}")
+        for n in names:
+            np.testing.assert_allclose(
+                getattr(model, f"stat_{n}").item(),
+                float(state.batch_stats[f"decoders_{n}"]), atol=1e-6,
+                err_msg=f"batch {i} {n}")
+        assert set(metrics) == {"loss_a", "loss_b", "loss_cv", "loss_total"}
+        assert (i % 2 == 1) != np.allclose(np.asarray(state.params["w"]),
+                                           w0) or i > 1
+    assert step.step == 4 and not np.allclose(model.w.detach().numpy(), w0)
+
+
+def test_trace_matches_jax_trace(moe_run, tmp_path):
+    """utils/tracing.py: the port's trace of an eval forward, dumped and
+    read back, against the JAX package's summaries of the same layers on
+    the same weights (patch embedding, block 0, the first head's first
+    conv, in NHWC order), by numeric_diff: within 1e-4, the model
+    outputs' tolerance."""
+    from m3vit_tpu.utils.tracing import _summarize as jax_summarize
+    from m3vit_tpu.utils.tracing import dump_trace as jax_dump
+
+    p, names, batch, v, (*_r, inter, _) = moe_run
+    model, _ = _port_model(p, v, names, len(names))
+    model.eval()
+    keep = {"backbone.patch_embed": "backbone/patch_embed",
+            "backbone.blocks.0": "backbone/block_0",
+            f"decoders.{names[0]}.conv_0": f"decoders_{names[0]}/conv_0"}
+    traces = trace_model(model, _nchw(batch["image"]),
+                         filter_fn=lambda name: name in keep)
+    dump_trace(traces, str(tmp_path / "port.log"))
+    ours = load_trace(str(tmp_path / "port.log"))
+    assert set(ours) == set(keep)
+    jtraces = {}
+    for port_name, jname in keep.items():
+        node = inter
+        for part in jname.split("/"):
+            node = node[part]
+        # the module's last call (the port's hook keeps its last output)
+        jtraces[port_name] = jax_summarize(node["__call__"][-1])
+    jax_dump(jtraces, str(tmp_path / "jax.log"))
+    theirs = load_trace(str(tmp_path / "jax.log"))
+    for k in keep:
+        assert ours[k]["shape"][-1] == theirs[k]["shape"][-1], k
+        assert len(ours[k]["first"]) == 100
+        np.testing.assert_allclose(ours[k]["mean"], theirs[k]["mean"],
+                                   atol=1e-5, err_msg=k)
+    diffs = numeric_diff(ours, theirs)
+    assert set(diffs) == set(keep)
+    assert max(diffs.values()) < 1e-4, diffs
 
 
 MODEL_CASES = {

@@ -59,6 +59,7 @@ from m3vit_tpu_torch.train.optim import build_optimizer
 from m3vit_tpu_torch.train.step import make_train_step
 from m3vit_tpu_torch.utils.convert import jax_variables_to_state_dict
 from tests.jax_fast_compile import FAST_COMPILE, fast_jit as _jit
+from tests.torch_port_replay import capture_bn, head_masks, replay_head_masks
 
 t = torch.from_numpy
 
@@ -370,7 +371,10 @@ TRAIN = dict(capacity_factor=1.25, vmoe_noisy_std=0.0, shared_prefix=True)
 def trajectories():
     """STEPS train steps of the JAX model (one jitted program, compiled
     once) and of the port, from the same weights (the port's seeded init)
-    on the same batch; the state after step 1 and after the last step."""
+    on the same batch; the state after step 1 and after the last step.
+    Each port step replays the ReLU masks of JAX's heads in that step's
+    forward (tests/torch_port_replay.py), read by a second jitted program
+    from JAX's state before the step."""
     jtasks = jax_parse("PASCALContext", TASK_DICT)[0]
     names = [tk.name for tk in jtasks]
     rng = np.random.RandomState(9)
@@ -397,8 +401,14 @@ def trajectories():
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jstep = jstep.lower(state, jbatch, jax.random.key(0)).compile(
         FAST_COMPILE)
-    jmetrics, jstates = [], []
+    bn_out = _jit(lambda params, stats, img: jmodel.apply(
+        {"params": params, "batch_stats": stats}, img, train=True,
+        rngs={"gate_noise": jax.random.key(0)}, mutable=["batch_stats"],
+        capture_intermediates=capture_bn)[1]["intermediates"])
+    jmetrics, jstates, masks = [], [], []
     for i in range(STEPS):
+        masks.append(head_masks(bn_out(state.params, state.batch_stats,
+                                       jbatch["image"]), names))
         state, m = jstep(state, jbatch, jax.random.key(i))
         jmetrics.append({k: float(v) for k, v in m.items()})
         if i in (0, STEPS - 1):
@@ -413,7 +423,8 @@ def trajectories():
     tbatch = {k: _nchw(v) for k, v in batch.items()}
     metrics, states = [], []
     for i in range(STEPS):
-        metrics.append({k: v.item() for k, v in step(tbatch).items()})
+        with replay_head_masks(model, masks[i]):
+            metrics.append({k: v.item() for k, v in step(tbatch).items()})
         if i in (0, STEPS - 1):
             states.append({k: v.detach().clone()
                            for k, v in model.state_dict().items()})

@@ -254,3 +254,90 @@ def test_ffn_route_by_width(d, hidden, route):
 def test_ffn_route_refuses_other_shapes(d, hidden):
     with pytest.raises(ValueError):
         ffn_route(d, hidden)
+
+
+def test_head_gradient_gap_is_a_relu_flip(vit_base_run, monkeypatch):
+    """ROADMAP.md queue 3, located: a head's train-mode gradient moves by
+    up to ~1e-2 of its magnitude between the packages because a BatchNorm
+    output within f32 rounding of zero takes opposite signs, so the ReLU
+    keeps the element on one side only (JAX's two-pass head gradients
+    equal its one-pass ones bit for bit, as the port's do:
+    test_torch_port_step_paths.py::test_head_grads_of_joint_step_equal_
+    one_by_one).  Each head in f32 against the same head in f64 on the
+    same features: with the f64 ReLU masks replayed the f32 gradients
+    agree to 1e-4 of their largest magnitude (this file's gradient
+    tolerance), and without them a head's gradients leave that tolerance
+    only where a mask flipped.  The normals head is left out: its L1 loss
+    has a sign of its own at every element (|out - label|), which the
+    same rounding flips."""
+    import copy
+    import types
+
+    import torch.nn.functional as F
+
+    from m3vit_tpu_torch.losses.functions import loss_fn_for_task
+    from m3vit_tpu_torch.models import heads as heads_mod
+    from m3vit_tpu_torch.models.heads import resize_bilinear
+    from tests.torch_port_replay import replay_head_masks
+
+    tp, names, model, batch, *_ = vit_base_run
+    model.train()
+    x = t(batch["image"])
+
+    def run(head, feats, task, masks=None):
+        """The head's parameter gradients, and its ReLU masks."""
+        seen = []
+
+        def bn_relu(self, j, y):
+            z = heads_mod.batch_norm(getattr(self, f"syncbn_fc_{j}"), y,
+                                     self.training).to(self.dtype)
+            seen.append(z.detach() > 0)
+            return F.relu(z)
+
+        head.zero_grad(set_to_none=True)
+        with monkeypatch.context() as m:
+            if head.dtype == torch.float64:   # LayerNorm in f64 too
+                m.setattr(heads_mod, "layer_norm", lambda n, v: F.layer_norm(
+                    v, n.normalized_shape, n.weight, n.bias, n.eps))
+            if masks is None:
+                m.setattr(heads_mod.VisionTransformerUpHead, "_bn_relu",
+                          bn_relu)
+                out = head(feats)
+            else:
+                with replay_head_masks(types.SimpleNamespace(
+                        decoders={task: head}), {task: masks}):
+                    out = head(feats)
+        out = out[0] if isinstance(out, tuple) else out   # TAM's features
+        loss_fn_for_task(task, tp)(resize_bilinear(out, (IMG, IMG)),
+                                   t(batch[task])).backward()
+        return {k: p.grad.double() for k, p in head.named_parameters()}, seen
+
+    flipped, gapped = set(), set()
+    for i, task in enumerate(names):
+        if task == "normals":
+            continue
+        with torch.no_grad():
+            feats = model.backbone(x, i)[0]
+        head64 = copy.deepcopy(model.decoders[task]).double()
+        head64.dtype = torch.float64
+        g64, masks64 = run(head64, feats.double(), task)
+        g32, masks32 = run(copy.deepcopy(model.decoders[task]), feats, task)
+        g32r, _ = run(copy.deepcopy(model.decoders[task]), feats, task,
+                      masks64)
+        if any(bool((a != b).any()) for a, b in zip(masks32, masks64)):
+            flipped.add(task)
+        for k, ref in g64.items():
+            if k in ("conv_0.bias", "conv_1.bias", "conv_2.bias",
+                     "conv_3.bias"):
+                # a bias before a train-mode BatchNorm: zero in exact
+                # arithmetic, f32 rounding in either package
+                assert float(ref.abs().max()) < 1e-12, (task, k)
+                continue
+            scale = max(float(ref.abs().max()), 1e-3)
+            np.testing.assert_allclose(g32r[k].numpy(), ref.numpy(),
+                                       atol=1e-4 * scale,
+                                       err_msg=f"{task} {k}, masks replayed")
+            if float((g32[k] - ref).abs().max()) > 1e-4 * scale:
+                gapped.add(task)
+    assert gapped <= flipped, (gapped, flipped)
+    assert flipped, "no head's ReLU mask flipped at these weights"
