@@ -55,6 +55,16 @@ random weights) along each of its paths, the kernels' launch counts set to
   --n_expert 1 --a2a_chunks 2: steps, --resume, --eval, one-by-one with
   accumulation and the tracing flags, against a run without a process
   group.
+- token: the token persistent-sharing MoE ViT
+  (configs/pascal/token_moe/pup_moe_vit_small_multi_task_baseline.yml,
+  full width) through the CLI for two epochs on a fabricated tree (the
+  Gumbel temperature schedule moving once), its train step against the
+  plain path with share masks and routing replayed, batched_dispatch
+  against the per-task loop, serving at buckets 1 and 8; the
+  task-conditioned config through the CLI with --task_one_hot; the NYUD
+  task-conditioned config's step, joint and with shared_prefix; and the
+  NYUD ViT-base token config's step and a served image, each against its
+  plain path.
 Each phase prints one JSON line; the line before the last is nvidia-smi's
 card name and power limit, and the last line is {"ok": true, "device":
 {...}}.  Any failed check exits non-zero before that line; without CUDA the
@@ -100,7 +110,7 @@ from m3vit_tpu_torch.models import (  # noqa: E402
     build_model,
     set_use_kernels,
 )
-from m3vit_tpu_torch.models import vit_moe  # noqa: E402
+from m3vit_tpu_torch.models import token_moe, vit_moe  # noqa: E402
 from m3vit_tpu_torch.moe.dispatch import (  # noqa: E402
     compute_capacity,
     parse_capacity_factor,
@@ -110,6 +120,7 @@ from m3vit_tpu_torch.moe.gating import (  # noqa: E402
     noisy_vmoe_gate,
     small_topk,
 )
+from m3vit_tpu_torch.models.token_moe import transition_stage  # noqa: E402
 from m3vit_tpu_torch.ops import _build  # noqa: E402
 from m3vit_tpu_torch.ops.expert_ffn import (  # noqa: E402
     BWD_KSTEP,
@@ -188,7 +199,7 @@ TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 8, 10, 10
 # lost micro-batch or a missing 1/k is off by 50% or more
 ADAM_STEPS, ADAM_LR = 5, 5e-5   # optimizer steps (two micro-batches each)
 DENSE_REQUESTS = 50      # timed bucket-8 requests of the dense ViT
-LN_MLP_REQUESTS = 100    # timed bucket-8 requests of the ln_mlp serving path
+LN_MLP_REQUESTS = 40     # timed bucket-8 requests of the ln_mlp serving path
 LOSS_WEIGHTS = {"semseg": 1.0, "human_parts": 2.0, "sal": 5.0, "edge": 50.0,
                 "normals": 10.0}
 # bench.py:316-322: SGD, lr 0.002, momentum 0.9, wd 1e-4, poly over 100
@@ -225,7 +236,7 @@ DENSE_CONFIG = {
 # (bf16 dense tensor-core FLOP/s, HBM bytes/s) by device name, from NVIDIA's
 # data sheet (H100 SXM5, at its 700 W limit)
 PEAKS = {"NVIDIA H100 80GB HBM3": (989e12, 3.35e12)}
-REQUESTS = 200           # timed requests per serving cell
+REQUESTS = 40            # timed requests per serving cell
 EVAL_REPS = 10
 
 failures = []
@@ -380,16 +391,24 @@ def call_memory_mb(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 1e6
 
 
+# (B, N, C, heads, valid keys) of K1's cases: the flagship's, then the
+# token model's streams (T*B sequences; TOKEN_FFN_SHAPES has its FFNs)
+ATTENTION_SHAPES = ((8, 1025, 384, 6, None), (8, 1025, 384, 6, 1000),
+                    (1, 1025, 384, 6, None), (40, 1025, 384, 6, None),
+                    (4, 1201, 768, 12, None))
+
+
 def attention_phase(peaks, dev):
-    """K1 at the train/serve bucket-8 shape (all keys, and 1000 valid) and
-    at serving bucket 1; its o against the plain version, its lse against
-    the plain logsumexp, and two runs bit for bit."""
-    N, C, H = 1025, 384, 6
-    d = C // H
-    scale = d ** -0.5
+    """K1 at the train/serve bucket-8 shape (all keys, and 1000 valid), at
+    serving bucket 1, and at the token model's stream batches (the
+    flagship-width token config's 5 tasks x B 8, the NYUD ViT-base token
+    config's 2 tasks x B 2 at 480 x 640); its o against the plain version,
+    its lse against the plain logsumexp, and two runs bit for bit."""
     g = torch.Generator(device=dev).manual_seed(0)
     cases = []
-    for B, valid in ((8, None), (8, 1000), (1, None)):
+    for B, N, C, H, valid in ATTENTION_SHAPES:
+        d = C // H
+        scale = d ** -0.5
         qkv = torch.randn(B, N, 3 * C, device=dev, generator=g).bfloat16()
         q, k, v = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
         n_kv = N if valid is None else valid
@@ -448,6 +467,24 @@ WIDE_FFN_BWD_SHAPES = tuple(c for c in WIDE_FFN_SHAPES
 WIDE_LN_MLP_SHAPES = (("vit_base", 8200, 768, 3072),
                       ("vit_large", 9608, 1024, 4096),
                       ("vit_tiny", 516, 192, 768))
+# ... and on the token model's path (models/token_moe.py): the flagship-width
+# token config (5 tasks, B 8, 1025 tokens, E 16, K 2, expert hidden 768):
+# a task's experts at the train capacity (cf 1.25) and at the serving
+# capacity (eval cf 4.0, bucket 8), the five tasks' in one stacked dispatch
+# (batched_dispatch), the dense MLP over all streams; the NYUD ViT-base token
+# config (2 tasks, B 2, 480 x 640: 1201 tokens) at d 768: experts at the
+# train capacity, the dense MLP over its streams
+TOKEN_FFN_SHAPES = (
+    ("token_experts_train", 16, compute_capacity(8200, 2, 16, 1.25), 384,
+     768),
+    ("token_experts_eval_bucket_8", 16, compute_capacity(8200, 2, 16, 4.0),
+     384, 768),
+    ("token_experts_batched", 16, 5 * compute_capacity(8200, 2, 16, 1.25),
+     384, 768),
+    ("token_dense_mlp_streams", 1, 5 * 8200, 384, 1536),
+    ("token_base_experts_train", 16, compute_capacity(2402, 2, 16, 1.25),
+     768, 1536),
+    ("token_base_dense_mlp_streams", 1, 2 * 2402, 768, 3072))
 WIDE_FFN_Q_SHAPES = (
     ("vit_base_bucket_8", 16, compute_capacity(8200, 2, 16, 4.0), 768, 1536),
     ("vit_base_bucket_1", 16, compute_capacity(1025, 2, 16, 4.0), 768, 1536))
@@ -465,7 +502,7 @@ def ffn_phase(peaks, dev):
                                ("dense_mlp", 1, 8200, 384, 1536),
                                ("experts_train", 16, 2568, 384, 384),
                                ("experts_eval_nodrop", 16, nodrop, 384,
-                                384)) + WIDE_FFN_SHAPES:
+                                384)) + WIDE_FFN_SHAPES + TOKEN_FFN_SHAPES:
         r = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
         # unit-scale tokens (LayerNorm output) and fan-in scaled weights
         h = r(E, Ct, d).bfloat16()
@@ -528,14 +565,15 @@ def check_grads(got, ref, what):
 
 
 def attention_bwd_phase(peaks, dev):
-    B, N, C, H = 8, 1025, 384, 6
-    d = C // H
-    scale = d ** -0.5
     g = torch.Generator(device=dev).manual_seed(2)
-    qkv = torch.randn(B, N, 3 * C, device=dev, generator=g).bfloat16()
-    dout = torch.randn(B, N, C, device=dev, generator=g).bfloat16()
     cases = []
-    for valid in (None, 1000):
+    for B, N, C, H, valid in ATTENTION_SHAPES:
+        if B == 1:      # serving only
+            continue
+        d = C // H
+        scale = d ** -0.5
+        qkv = torch.randn(B, N, 3 * C, device=dev, generator=g).bfloat16()
+        dout = torch.randn(B, N, C, device=dev, generator=g).bfloat16()
         n_kv = N if valid is None else valid
         o, lse = flash_attention_fwd(qkv, H, scale, valid)
         got = flash_attention_bwd(qkv, o, lse, dout, H, scale, valid)
@@ -597,7 +635,8 @@ def ffn_bwd_phase(peaks, dev):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, E, Ct, d, Hd in (("experts", 16, 2568, 384, 384),
                                ("dense_mlp", 1, 8200, 384, 1536)
-                               ) + WIDE_FFN_BWD_SHAPES:
+                               ) + WIDE_FFN_BWD_SHAPES + tuple(
+            c for c in TOKEN_FFN_SHAPES if "eval" not in c[0]):
         r = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
         h = r(E, Ct, d).bfloat16()
         w1 = (r(E, Hd, d) * d ** -0.5).bfloat16()
@@ -985,7 +1024,10 @@ def serving_phase(dev):
 
 PARAM_GROUPS = (("attention", ".attn."), ("dense_mlp", ".mlp.fc"),
                 ("experts", ".mlp.experts."), ("gates", ".mlp.gate."),
-                ("heads", "decoders."), ("tam", "tam_model"))
+                ("heads", "decoders."), ("tam", "tam_model"),
+                ("token_gates", ".gate."), ("share_pred", ".share_pred."),
+                ("shared_ffn", ".shared_ffn."),
+                ("task_feature", "gate_task_represent."))
 
 
 def param_group(name: str) -> str:
@@ -1008,13 +1050,14 @@ class RoutingTape:
         self.tokens = self.rerouted = 0
 
     def __enter__(self):
-        vit_moe.noisy_vmoe_gate = self.gate
+        vit_moe.noisy_vmoe_gate = token_moe.noisy_vmoe_gate = self.gate
         vit_moe.noisy_gate = self.learned_gate
         self.pos = 0
         return self
 
     def __exit__(self, *exc):
-        vit_moe.noisy_vmoe_gate = noisy_vmoe_gate
+        vit_moe.noisy_vmoe_gate = token_moe.noisy_vmoe_gate = \
+            noisy_vmoe_gate
         vit_moe.noisy_gate = noisy_gate
         if not exc[0] and self.replaying and self.pos != len(self.tape):
             raise RuntimeError(f"replayed {self.pos} of {len(self.tape)} "
@@ -1041,9 +1084,11 @@ class RoutingTape:
             top_k_indices=idx[:, :top_k], top_k_gates=gates, top_logits=top,
             gates=torch.zeros_like(scores).scatter(1, idx[:, :top_k], gates))
 
-    def gate(self, gate_inp, w_gate, *, top_k, noise_std=1.0, noise=None):
+    def gate(self, gate_inp, w_gate, *, top_k, noise_std=1.0, noise=None,
+             clean_logits=None):
         out = noisy_vmoe_gate(gate_inp, w_gate, top_k=top_k,
-                              noise_std=noise_std, noise=noise)
+                              noise_std=noise_std, noise=noise,
+                              clean_logits=clean_logits)
         return self._tape(out, torch.softmax(out.noisy_logits, dim=-1),
                           top_k, False)
 
@@ -1100,14 +1145,16 @@ def rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def rel_by_group(a, b):
-    """Relative error of gradient dict a against b per parameter group."""
+def rel_by_group(a, b, group=param_group):
+    """Relative error of gradient dict a against b per parameter group
+    (`group` of the parameter's name)."""
     sq = {}
     for n, ga in a.items():
-        acc = sq.setdefault(param_group(n), [0.0, 0.0])
+        acc = sq.setdefault(group(n), [0.0, 0.0])
         acc[0] += (ga - b[n]).square().sum().item()
         acc[1] += b[n].square().sum().item()
-    return {g: (x / y) ** 0.5 for g, (x, y) in sq.items()}
+    return {g: (x / y) ** 0.5 if y else (0.0 if x == 0 else float("inf"))
+            for g, (x, y) in sq.items()}
 
 
 def param_grads(model):
@@ -2973,6 +3020,594 @@ def wide_phase(dev, root: str):
     return paths
 
 
+TOKEN_CONFIG = ("configs/pascal/token_moe/"
+                "pup_moe_vit_small_multi_task_baseline.yml")
+ONEHOT_CONFIG = ("configs/pascal/vit_moe/"
+                 "pup_moe_vit_small_multi_task_baseline_onehot.yml")
+TC_NYUD_CONFIG = "configs/nyud/vit_moe_task_conditioned.yml"
+TOKEN_BASE_CONFIG = ("configs/nyud/token_moe/"
+                     "pup_moe_vit_base_multi_task_baseline.yml")
+TOKEN_IMAGES = 32          # the token phase's tree: 4 steps an epoch at B=8
+TOKEN_EPOCHS = 2           # the temperature changes once
+TOKEN_TEMP = 0.5           # the Gumbel temperature of the checks' steps
+TOKEN_REQUESTS = 20        # timed requests per serving bucket
+TOKEN_PHASE_LIMIT_S = 200.0
+
+
+#: the token checks' gradient groups that are reported and not held (see
+#: token_vs_plain): the shareability heads and the task feature, whose
+#: gradients are differences of task streams stored in bf16
+UNHELD_TOKEN_GROUPS = ("share_pred", "task_feature")
+#: a held token group whose plain bf16 gradient is itself eps from the f32
+#: copy's is held to max(BACKBONE_GRAD_REL_TOL, 2 eps): two bf16 paths
+#: that round apart sit about sqrt(2) eps from each other (the NYUD ViT-base
+#: token model's router on an H100: eps 2.16%, kernel vs plain 2.14%).
+#: eps itself must stay under TOKEN_EPS_MAX, so no limit reaches 10%, which
+#: a zeroed or shuffled gradient (100% or more) fails
+TOKEN_EPS_FACTOR, TOKEN_EPS_MAX = 2.0, 0.05
+
+
+def share_block_group(name: str) -> str:
+    """param_group, with each block's shareability head apart."""
+    g = param_group(name)
+    if g == "share_pred":
+        return f"share_pred.{name.split('blocks.')[1].split('.')[0]}"
+    return g
+
+
+def tc_step_launches(tasks: int, shared_prefix: bool):
+    """Launches of one remat train step of the 12-block MoE ViT whose one
+    router reads the task feature: one backbone pass a task (12 K1-K4
+    each), or with the shared prefix block 0 and block 1's attention once
+    and the rest a task (expected_train_launches); remat runs every
+    forward launch twice."""
+    per = expected_train_launches(12, tasks if shared_prefix else 1)
+    out = {k: v * (1 if shared_prefix else tasks) for k, v in per.items()}
+    for k in ("flash_attention_fwd", "expert_ffn_fwd"):
+        out[k] *= 2
+    return out
+
+
+def token_launches(tasks: int, depth: int = 12, train: bool = False,
+                   remat: bool = True, batched: bool = False):
+    """Launches of one token-model forward (or remat train step): K1 once
+    a block over the T*B streams; in a dense block K3 twice (the streams,
+    then the representative), in an MoE block once a task (once with
+    batched_dispatch); a remat step runs the forward twice and the backward
+    once."""
+    dense, moe = (depth + 1) // 2, depth // 2
+    fwd = {"flash_attention_fwd": depth,
+           "expert_ffn_fwd": 2 * dense + moe * (1 if batched else tasks)}
+    if not train:
+        return fwd
+    out = {k: v * (2 if remat else 1) for k, v in fwd.items()}
+    out.update(flash_attention_bwd=fwd["flash_attention_fwd"],
+               expert_ffn_bwd=fwd["expert_ffn_fwd"])
+    return out
+
+
+class ShareTape:
+    """Records the share mask of every transition stage (models/
+    token_moe.py:transition_stage) in one forward and replays them in
+    another, so that two forwards whose roundings differ share the same
+    positions (the shareability scores of the replaying forward weigh the
+    representative).  Counts the positions whose own mask differs from
+    the recording.  For this script's comparisons only."""
+
+    def __init__(self):
+        self.tape, self.replaying, self.pos = [], False, 0
+        self.positions = self.flipped = 0
+        self.spread = []
+
+    def __enter__(self):
+        token_moe.transition_stage = self.stage
+        self.pos = 0
+        return self
+
+    def __exit__(self, *exc):
+        token_moe.transition_stage = transition_stage
+        if not exc[0] and self.replaying and self.pos != len(self.tape):
+            raise RuntimeError(f"replayed {self.pos} of {len(self.tape)} "
+                               "share masks")
+        self.replaying = True
+
+    def stage(self, outs, g, gamma, eps: float = 1e-6):
+        m, valid, shared_x, stats = transition_stage(outs, g, gamma, eps)
+        if not self.replaying:
+            self.tape.append(m.detach())
+            # how far the sharing tasks' streams are from their
+            # representative, relative to the streams: the differences a
+            # shareability head's gradient sums
+            with torch.no_grad():
+                mf = m[..., None].float()
+                self.spread.append(float(
+                    ((outs.float() - shared_x[None]) * mf).norm()
+                    / (outs.float() * mf).norm().clamp(min=1e-30)))
+            return m, valid, shared_x, stats
+        rec = self.tape[self.pos]
+        self.pos += 1
+        self.flipped += int((rec != m).sum())
+        self.positions += m.numel()
+        gm = g * rec.to(g.dtype)
+        w = gm / (gm.sum(dim=0, keepdim=True) + eps)
+        valid = rec.sum(dim=0) >= 2
+        return rec, valid, torch.einsum("tbn,tbnc->bnc", w, outs.float()), {
+            "shared_positions": valid.sum().float(),
+            "shared_tasktoken_count": rec.sum().float()}
+
+
+def token_run(model, names, batch, p, dev, kernels: bool, tapes,
+              alone: bool, cotangent=None):
+    """One train-mode forward and backward of token model `model` from its
+    current state, gate noise and Gumbel uniforms from generator seed 1,
+    at TOKEN_TEMP, under `tapes` (a RoutingTape and a ShareTape): the loss
+    (+ 0.01 aux) or, `alone`, the backbone's streams under `cotangent`.
+    Returns (loss or None, parameter grads, the streams)."""
+    set_use_kernels(model, kernels)
+    model.train()
+    model.zero_grad(set_to_none=True)
+    noise = torch.Generator(device=dev).manual_seed(1)
+    loss = None
+    with tapes[0], tapes[1]:
+        if alone:
+            streams, _, _ = model.backbone(batch["image"], noise, TOKEN_TEMP)
+            out = torch.stack([streams[i] for i in range(len(names))])
+            out.float().backward(cotangent)
+        else:
+            pred, aux, _ = model(batch["image"], noise=noise,
+                                 share_temp=TOKEN_TEMP)
+            total = multi_task_loss(pred, batch, names, build_loss_fns(p),
+                                    p["loss_kwargs"]["loss_weights"]
+                                    )["total"] + 0.01 * aux
+            total.backward()
+            loss, out = total.item(), None
+    set_use_kernels(model, True)
+    return loss, param_grads(model), (None if out is None
+                                      else out.detach())
+
+
+def token_vs_plain(model, names, batch, p, dev, what: str):
+    """A token model's train step with kernels and on the plain path, the
+    same weights, batch, Gumbel uniforms and gate noise, the plain path
+    replaying the kernel path's share masks and routing: the loss to
+    TRAIN_LOSS_REL_TOL; then the backbone alone under a fixed cotangent,
+    each parameter group's gradient to BACKBONE_GRAD_REL_TOL, beside an f32
+    copy of the model (plain path, the same masks and routing): a group
+    whose plain bf16 gradient is itself eps from the f32 one to
+    max(BACKBONE_GRAD_REL_TOL, TOKEN_EPS_FACTOR eps), eps under
+    TOKEN_EPS_MAX.  Two groups are reported and not held
+    (UNHELD_TOKEN_GROUPS): the shareability heads' and the task feature's
+    gradients are sums of the sharing tasks' stream differences from their
+    representative, and the streams are stored in bf16, so where those
+    differences are small against the streams their bf16 rounding (2^-8 of
+    the stream) makes much of them, and two bf16 paths round differently.
+    Neither group runs through a kernel (both paths compute the heads in
+    plain PyTorch; a kernel reaches them only through the streams, whose
+    groups are held), and the CPU tests hold both against the JAX package
+    in f32.  By block: each head's gradient norm and relative error
+    (kernel vs plain, plain bf16 vs f32) and the streams' spread
+    (ShareTape.spread).  Two kernel runs: the loss and the backbone's
+    gradients the same bits (cuDNN held to its deterministic algorithms:
+    the patch embedding's weight gradient).  Leaves the model on the
+    kernel path, grads cleared."""
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    T, B = len(names), batch["image"].shape[0]
+    cotangent = torch.randn(
+        (T, B) + tuple(model.backbone.pos_embed.shape[1:]), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(3))
+    tapes = {m: (RoutingTape(), ShareTape()) for m in ("step", "backbone")}
+    k1 = token_run(model, names, batch, p, dev, True, tapes["step"], False)
+    k2 = token_run(model, names, batch, p, dev, True, tapes["step"], False)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        k_bb = token_run(model, names, batch, p, dev, True,
+                         tapes["backbone"], True, cotangent)[1]
+        k_bb2 = token_run(model, names, batch, p, dev, True,
+                          tapes["backbone"], True, cotangent)[1]
+    finally:
+        torch.backends.cudnn.deterministic = det
+    same = k1[0] == k2[0] and all(torch.equal(k_bb[n], k_bb2[n])
+                                  for n in k_bb)
+    del k_bb2
+    before = dict(_build.launches)
+    pl = token_run(model, names, batch, p, dev, False, tapes["step"], False)
+    p_bb = token_run(model, names, batch, p, dev, False, tapes["backbone"],
+                     True, cotangent)[1]
+    model.load_state_dict(init)
+    model.zero_grad(set_to_none=True)
+    ref, _ = build_model({**p, "compute_dtype": "float32"}, device=dev,
+                         seed=0)
+    ref.load_state_dict(init)
+    f_bb = token_run(ref, names, batch, p, dev,
+                     False, tapes["backbone"], True, cotangent)[1]
+    del ref
+    check(dict(_build.launches) == before,
+          f"{what}: plain runs launched a kernel")
+    k_vs_p, k_vs_f, p_vs_f = (rel_by_group(a, b) for a, b in (
+        (k_bb, p_bb), (k_bb, f_bb), (p_bb, f_bb)))
+    held = {g: v for g, v in k_vs_p.items() if g not in UNHELD_TOKEN_GROUPS}
+    limits = {g: max(BACKBONE_GRAD_REL_TOL, TOKEN_EPS_FACTOR * p_vs_f[g])
+              for g in held}
+    loss_rel = abs(k1[0] - pl[0]) / abs(pl[0])
+    check(same and np.isfinite(k1[0]) and loss_rel <= TRAIN_LOSS_REL_TOL
+          and all(held[g] <= limits[g] and p_vs_f[g] <= TOKEN_EPS_MAX
+                  for g in held),
+          f"{what} train kernel vs plain: two kernel runs the same bits "
+          f"{same}; loss {k1[0]} vs {pl[0]} (rel limit {TRAIN_LOSS_REL_TOL});"
+          f" backbone grad rel err under a fixed cotangent, kernel vs plain "
+          f"{held} (limits {limits}; plain bf16 vs f32 {p_vs_f}, at most "
+          f"{TOKEN_EPS_MAX}); not held: kernel vs plain "
+          f"{({g: k_vs_p[g] for g in UNHELD_TOKEN_GROUPS})}")
+
+    def norms(g):
+        return {i: float(torch.cat([v.reshape(-1) for n, v in g.items()
+                                    if f"blocks.{i}.share_pred." in n]
+                                   ).norm())
+                for i in range(len(model.backbone.blocks))}
+
+    errs = [rel_by_group(a, b, share_block_group)
+            for a, b in ((k_bb, p_bb), (p_bb, f_bb))]
+    spread = tapes["backbone"][1].spread
+    by_block = {i: {"norm_kernel": k, "norm_plain_bf16": q, "norm_f32": f,
+                    "kernel_vs_plain": errs[0].get(f"share_pred.{i}"),
+                    "plain_bf16_vs_f32": errs[1].get(f"share_pred.{i}"),
+                    "stream_spread": spread[i]}
+                for (i, k), q, f in zip(norms(k_bb).items(),
+                                        norms(p_bb).values(),
+                                        norms(f_bb).values())}
+    return {"loss_kernel": k1[0], "loss_plain": pl[0],
+            "loss_rel_err": loss_rel, "two_kernel_runs_bitwise": same,
+            "backbone_cotangent": {"grad_rel_err": k_vs_p, "limits": limits,
+                                   "kernel_vs_f32": k_vs_f,
+                                   "plain_bf16_vs_f32": p_vs_f,
+                                   "not_held": sorted(UNHELD_TOKEN_GROUPS),
+                                   "share_pred_by_block": by_block},
+            "rerouted_token_frac": {
+                m: t[0].rerouted / t[0].tokens for m, t in tapes.items()
+                if t[0].tokens},
+            "flipped_share_frac": {
+                m: t[1].flipped / t[1].positions for m, t in tapes.items()
+                if t[1].positions}}
+
+
+def token_stats(model, batch, dev):
+    """The sharing statistics of one eval forward and one train-mode
+    forward (no backward) of the token model, summed over its blocks."""
+    out = {}
+    with torch.no_grad():
+        for mode in ("eval", "train"):
+            model.train(mode == "train")
+            _, _, st = model(batch["image"], noise=torch.Generator(
+                device=dev).manual_seed(4), share_temp=TOKEN_TEMP)
+            out[mode] = {k: float(v) for k, v in st.items()}
+    model.eval()
+    return out
+
+
+def batched_vs_loop(model, names, batch, dev):
+    """The token model's MoE blocks with batched_dispatch (one stacked
+    dispatch and K3/K4 launch for all tasks, moe_ffn_streams) against the
+    per-task loop, in training on the same weights and draws: the streams
+    the same bits, a batched forward's launches exactly, and the backbone's
+    gradients under a fixed cotangent within the K4 limits (the weight
+    gradients sum the tasks' rows in one launch)."""
+    T, B = len(names), batch["image"].shape[0]
+    cotangent = torch.randn(
+        (T, B) + tuple(model.backbone.pos_embed.shape[1:]), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(5))
+    moe_blocks = [b for b in model.backbone.blocks if b.moe]
+    res = {}
+    for batched in (False, True):
+        for b in moe_blocks:
+            b.batched_dispatch = batched
+        model.train()
+        model.zero_grad(set_to_none=True)
+        _build.reset_launches()
+        with torch.no_grad():
+            model.backbone(batch["image"], torch.Generator(
+                device=dev).manual_seed(1), TOKEN_TEMP)
+        launches = dict(_build.launches)
+        streams, _, _ = model.backbone(batch["image"], torch.Generator(
+            device=dev).manual_seed(1), TOKEN_TEMP)
+        out = torch.stack([streams[i] for i in range(T)])
+        out.float().backward(cotangent)
+        res[batched] = (out.detach(), param_grads(model), launches)
+    for b in moe_blocks:
+        b.batched_dispatch = False
+    model.zero_grad(set_to_none=True)
+    model.eval()
+    same = torch.equal(res[False][0], res[True][0])
+    per = check_launches(res[True][2], 1, token_launches(T, batched=True),
+                         "token batched_dispatch forward")
+    errs = {}
+    for n, g in res[False][1].items():
+        grp = param_group(n)
+        errs.setdefault(grp, []).append(n)
+    grads = {}
+    for grp, ns in errs.items():
+        a = torch.cat([res[True][1][n].reshape(-1) for n in ns])
+        b = torch.cat([res[False][1][n].reshape(-1) for n in ns])
+        grads[grp] = check_grads(a, b, f"token batched_dispatch vs loop "
+                                 f"{grp} grads")
+    check(same, "token batched_dispatch vs loop: forward streams differ")
+    return {"forward_bitwise": same, "launches_per_forward": per,
+            "grads": grads}
+
+
+def token_serving(model, names, hw, classes: int, p, what: str, seed: int,
+                  buckets=(1, 8)):
+    """semseg requests (`classes` classes) at each bucket (latency,
+    launches per pass: all the streams run), then one request a bucket on
+    the kernel and the plain path and on an f32 copy (config `p`), the
+    plain and f32 requests replaying the kernel request's share masks and
+    routing (an argmax share score or a gate within bf16 rounding of a tie
+    sends a token another way): logits to LOGIT_REL_TOL, class maps to
+    AGREE_MIN, or, where bf16 rounding alone moves more pixels than that,
+    as for the dense ViT, the kernel path's agreement with f32 at least the
+    plain bf16 path's less F32_AGREE_SLACK; the agreement without the
+    replay is reported beside."""
+    model.eval()
+    rows, launches = serve_rows(model, names, hw, buckets, classes,
+                                token_launches(len(names)), what, seed)
+    rng = np.random.RandomState(seed + 1)
+    ref, _ = build_model({**p, "compute_dtype": "float32"},
+                         device=dev_of(model), seed=0)
+    ref.load_state_dict(model.state_dict())
+    set_use_kernels(ref, False)
+    vs = []
+    for b in buckets:
+        imgs = rng.randn(b, *hw, 3).astype(np.float32)
+
+        def predict(m):
+            return InferenceSession(m, names, hw, buckets=(b,),
+                                    device=dev_of(m)).predict(
+                imgs, "semseg")
+
+        tapes = (RoutingTape(), ShareTape())
+        with tapes[0], tapes[1]:
+            k = predict(model)
+        before = dict(_build.launches)
+        set_use_kernels(model, False)
+        free = predict(model)
+        with tapes[0], tapes[1]:
+            pl = predict(model)
+        set_use_kernels(model, True)
+        with tapes[0], tapes[1]:
+            r = predict(ref)
+        check(dict(_build.launches) == before,
+              f"{what}: the plain request launched a kernel")
+        agree, rel_err = logit_agreement(k, pl)
+        free_agree, free_rel = logit_agreement(k, free)
+        k32, p32 = (logit_agreement(x, r)[0] for x in (k, pl))
+        check(rel_err <= LOGIT_REL_TOL and (
+            agree >= AGREE_MIN or k32 >= p32 - F32_AGREE_SLACK),
+              f"{what} kernel vs plain at bucket {b}: class-map agreement "
+              f"{agree} (min {AGREE_MIN}; with f32 kernel {k32}, plain bf16 "
+              f"{p32}, slack {F32_AGREE_SLACK}), logit rel err {rel_err} "
+              f"(limit {LOGIT_REL_TOL})")
+        vs.append({"bucket": b, "class_map_agreement": agree,
+                   "logit_rel_err": rel_err,
+                   "class_map_agreement_with_f32": {"kernel": k32,
+                                                    "plain": p32},
+                   "rerouted_token_frac": tapes[0].rerouted / tapes[0].tokens,
+                   "flipped_share_frac": tapes[1].flipped
+                   / tapes[1].positions,
+                   "without_replay": {"class_map_agreement": free_agree,
+                                      "logit_rel_err": free_rel}})
+    del ref
+    rows["kernel_vs_plain"] = vs
+    return rows, launches
+
+
+def dev_of(model):
+    return next(model.parameters()).device
+
+
+def token_cli_phase(dev, root: str):
+    """The token config (TOKEN_CONFIG, full width: d 384, 6 heads, E 16,
+    K 2, expert hidden 768, five PASCAL tasks, remat, 512^2, B=8) through
+    the CLI on a fabricated tree of TOKEN_IMAGES images, TOKEN_EPOCHS
+    epochs (the temperature schedule's warm-up cut with the epochs, so
+    the temperature moves once) and the final no-drop evaluation,
+    launches counted exactly; the run's model: its sharing statistics, a
+    train step kernel against plain (token_vs_plain), batched_dispatch
+    against the loop, and semseg serving at buckets 1 and 8 against the
+    plain path.  Then the task-conditioned config (ONEHOT_CONFIG) through
+    the CLI with --task_one_hot: one epoch of one-by-one steps and its
+    evaluation."""
+    import yaml
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    db = os.path.join(root, "PASCAL_MT")
+    t0 = time.perf_counter()
+    subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from fabricate_dataset import fabricate_pascal; "
+         "fabricate_pascal(sys.argv[2], int(sys.argv[3]), "
+         "(int(sys.argv[4]), int(sys.argv[5])))",
+         os.path.join(here, "scripts"), db, str(TOKEN_IMAGES),
+         *map(str, CLI_HW)], check=True, timeout=300)
+    fabricate_s = time.perf_counter() - t0
+    env = os.path.join(root, "env.yml")
+    with open(env, "w") as f:
+        yaml.safe_dump({"root_dir": os.path.join(root, "runs"),
+                        "dataset_roots": {"PASCAL_MT": db}}, f)
+    cfgs = {}
+    for name, path, extra in (
+            ("token", TOKEN_CONFIG, {"share_pred_temp_warmup_epochs": 0}),
+            ("onehot", ONEHOT_CONFIG, {})):
+        exp = load_config(path)
+        exp.update(edge_odsF_matcher="greedy", edge_odsF_thresholds=5,
+                   **extra)
+        cfgs[name] = os.path.join(root, f"{name}.yml")
+        with open(cfgs[name], "w") as f:
+            yaml.safe_dump(exp, f)
+    spe = TOKEN_IMAGES // CLI_BATCH
+    out, runs, launches, peak = {}, {}, {}, {}
+    log_path = os.path.join(root, "token_cli.log")
+    try:
+        with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+            for name, extra in (
+                    ("token", ["--epochs", str(TOKEN_EPOCHS)]),
+                    ("onehot", ["--epochs", "1", "--task_one_hot"])):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                _build.reset_launches()    # the run's path starts here
+                runs[name] = cli_main(
+                    ["--config_env", env, "--config_exp", cfgs[name],
+                     "--trBatch", str(CLI_BATCH), "--valBatch",
+                     str(CLI_BATCH), "--moe_eval_capacity_factor",
+                     "nodrop", "--run_name", name] + extra)
+                torch.cuda.synchronize()
+                launches[name] = dict(_build.launches)   # ... ends here
+                runs[name]["seconds"] = time.perf_counter() - t0
+                peak[name] = torch.cuda.max_memory_allocated() / 1e9
+    except BaseException:
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                print(f.read()[-6000:], file=sys.stderr)
+        raise
+    tok, oh = runs["token"], runs["onehot"]
+    temps = tok.get("share_temps", {})
+    check(tok["steps_run"] == TOKEN_EPOCHS * spe and oh["steps_run"] == spe
+          and len(set(temps.values())) == TOKEN_EPOCHS
+          and tok.get("best") is not None and oh.get("best") is not None
+          and oh["state"]["train_step"].__name__ == "one_by_one_step",
+          f"token cli: {tok['steps_run']} and {oh['steps_run']} steps, "
+          f"temperatures {temps}, one-by-one "
+          f"{oh['state']['train_step'].__name__}")
+    per = {"token": check_launches(
+        launches["token"], 1, {k: v * TOKEN_EPOCHS * spe + token_launches(
+            5).get(k, 0) * spe for k, v in token_launches(5, train=True
+                                                          ).items()},
+        "token cli run"),
+        "onehot": check_launches(launches["onehot"], 1,
+                                 expected_cli_launches(spe, spe),
+                                 "task-conditioned cli run")}
+    t = dict(tok["step_times"])
+    gaps = {s: (t[s] - t[s - 1]) * 1e3 for s in t
+            if s - 1 in t and (s - 1) % spe and s > 2}
+    model = tok["state"]["model"]
+    p = create_config(env, cfgs["token"], {})
+    names = list(p["TASK_NAMES"])
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
+                            p["TASKS"], CLI_BATCH, (IMG, IMG))
+    for r in runs.values():
+        r.pop("state")
+    out["share_stats"] = token_stats(model, batch, dev)
+    out["train_kernel_vs_plain"] = token_vs_plain(model, names, batch, p,
+                                                  dev, "token cli model")
+    out["batched_vs_loop"] = batched_vs_loop(model, names, batch, dev)
+    del batch
+    torch.cuda.empty_cache()
+    out["serving"], serve_launches = token_serving(
+        model, names, (IMG, IMG), 21, p, "token serving", 30)
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "token_cli", "config": TOKEN_CONFIG,
+          "onehot_config": ONEHOT_CONFIG, "images": TOKEN_IMAGES,
+          "fabricate_s": fabricate_s, "share_temps": temps,
+          "runs": {k: _summary(r) for k, r in runs.items()},
+          "launches": launches, "launches_expected_equal": per,
+          "peak_memory_gb": peak,
+          "cli_ms_per_step_median": float(np.median(list(gaps.values())))
+          if gaps else None, "cli_step_gaps_ms": gaps, **out})
+    return {"token_cli": launches["token"], "token_tc_cli":
+            launches["onehot"], "token_serving": serve_launches}
+
+
+def token_wide_phase(dev):
+    """The task-conditioned NYUD config (TC_NYUD_CONFIG: ViT-small, one
+    shared router with the task feature, 4 tasks, 480 x 640, B=4, remat)
+    built by build_model, joint and with shared_prefix: one make_train_step
+    step with its launches counted exactly (tc_step_launches), then a
+    train step kernel against plain from the initial weights
+    (train_vs_plain, routing replayed); the
+    NYUD ViT-base token config (TOKEN_BASE_CONFIG: d 768, 12 heads, E 16,
+    K 2, expert hidden 1536, two tasks, 480 x 640, B=2, K3 on its
+    two-pass route) at full width: a train step kernel against plain
+    (token_vs_plain) with its launches counted, and one served image
+    against the plain path."""
+    out, paths = {}, {}
+    p = load_config(TC_NYUD_CONFIG)
+    hw = tuple(p["backbone_kwargs"]["img_size"])
+    for prefix in (False, True):
+        model, tasks = build_model({**p, "shared_prefix": prefix},
+                                   device=dev, seed=0)
+        names = [tk.name for tk in tasks]
+        batch = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
+                                tasks, int(p["trBatch"]), hw)
+        key = "shared_prefix" if prefix else "joint"
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        opt, schedule = build_optimizer(model.parameters(), p, 1)
+        step = make_train_step(model, names, build_loss_fns(p),
+                               p["loss_kwargs"]["loss_weights"], opt,
+                               schedule)
+        torch.cuda.synchronize()
+        _build.reset_launches()          # the train path starts here
+        loss = step(batch, torch.Generator(device=dev).manual_seed(2))[
+            "loss_total_with_cv"].item()
+        torch.cuda.synchronize()
+        paths[f"token_tc_nyud_{key}"] = dict(_build.launches)  # ... ends here
+        check(np.isfinite(loss), f"nyud task-conditioned {key} step loss "
+              f"{loss}")
+        out[f"task_conditioned_{key}_launches"] = check_launches(
+            paths[f"token_tc_nyud_{key}"], 1,
+            tc_step_launches(len(names), prefix),
+            f"nyud task-conditioned {key} train step")
+        del opt, step
+        model.load_state_dict(init)
+        model.zero_grad(set_to_none=True)
+        out[f"task_conditioned_{key}"] = train_vs_plain(
+            model, names, batch, p, dev, f"nyud task-conditioned {key}")
+        del model, batch, init
+        torch.cuda.empty_cache()
+    p = load_config(TOKEN_BASE_CONFIG)
+    hw = tuple(p["backbone_kwargs"]["img_size"])
+    model, tasks = build_model(p, device=dev, seed=0)
+    names = [tk.name for tk in tasks]
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
+                            tasks, int(p["trBatch"]), hw)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()          # the train path starts here
+    token_run(model, names, batch, p, dev, True,
+              (RoutingTape(), ShareTape()), False)
+    paths["token_base_train"] = dict(_build.launches)   # ... ends here
+    out["token_base_train_launches"] = check_launches(
+        paths["token_base_train"], 1, token_launches(len(names), train=True),
+        "nyud token base train step")
+    out["token_base_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["token_base_train_kernel_vs_plain"] = token_vs_plain(
+        model, names, batch, p, dev, "nyud token base")
+    del batch
+    out["token_base_serving"], paths["token_base_serving"] = token_serving(
+        model, names, hw, next(tk.num_output for tk in tasks
+                               if tk.name == "semseg"), p,
+        "nyud token base serving", 31, buckets=(1,))
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "token_wide", "configs": [TC_NYUD_CONFIG,
+                                             TOKEN_BASE_CONFIG], **out})
+    return paths
+
+
+def token_phase(dev, root: str):
+    """The token slice's paths in turn (token_cli_phase, token_wide_phase)
+    within TOKEN_PHASE_LIMIT_S; their launches by path."""
+    t0 = time.perf_counter()
+    paths = token_cli_phase(dev, root)
+    torch.cuda.empty_cache()
+    paths.update(token_wide_phase(dev))
+    phase_s = time.perf_counter() - t0
+    check(phase_s < TOKEN_PHASE_LIMIT_S,
+          f"token phases took {phase_s:.1f} s (limit {TOKEN_PHASE_LIMIT_S})")
+    emit({"phase": "token_total", "seconds": phase_s})
+    return paths
+
+
 EP_CONFIG = "configs/cityscapes/vit_base_moe_ep.yml"
 EP_IMAGES, EP_HW, EP_BATCH = 32, (256, 512), 8   # 4 steps an epoch
 EP_STOP = 3                # run 1 stops after 3 steps, --resume runs 1
@@ -3344,15 +3979,15 @@ def parallel_cli_phase(dev, root: str):
     def chain(*items):
         return all(cli(*item) for item in items)
 
-    # run 1 alone (its first 3 steps traced), then two chains side by side
-    # on the card: its --resume and --eval, and the runs that do not
+    # run 1 alone (its first 3 steps traced), then three chains side by
+    # side on the card: its --resume and --eval, and the runs that do not
     # depend on it (their host clocks share the machine, so no step time
     # is read from them)
     chain(("stop", ["--run_name", "ep", "--stop_after_steps", str(EP_STOP),
                     "--profile_dir", prof, "--forward_hook"]))
     if not failed:
         from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(2) as pool:
+        with ThreadPoolExecutor(3) as pool:
             jobs = [pool.submit(chain, ("resume", ["--run_name", "ep",
                                                    "--resume"]),
                                 ("eval", ["--run_name", "ep", "--eval"])),
@@ -3363,9 +3998,9 @@ def parallel_cli_phase(dev, root: str):
                                         "--one_by_one",
                                         "--accumulation_steps", "2",
                                         "--stop_after_steps",
-                                        str(EP_OBO_CALLS)]),
-                        ("tracing", ["--run_name", "ep_trace", "--flops",
-                                     "--time"]))]
+                                        str(EP_OBO_CALLS)])),
+                    pool.submit(chain, ("tracing", [
+                        "--run_name", "ep_trace", "--flops", "--time"]))]
             for job in jobs:
                 job.result()
     check(not failed, f"parallel cli runs failed: {failed}")
@@ -3485,9 +4120,9 @@ def parallel_phase(dev, root: str):
 
 # the phases, in order, by the names `--only` takes: the kernels against
 # their plain versions, the flagship's paths, the CLI and the training
-# recipe on its tree, the wider model families, and data and expert
-# parallelism
-PHASES = ("kernels", "flagship", "cli", "wide", "parallel")
+# recipe on its tree, the wider model families, data and expert
+# parallelism, and the token variant with the task-conditioned router
+PHASES = ("kernels", "flagship", "cli", "wide", "parallel", "token")
 
 
 def main(argv=None) -> int:
@@ -3537,7 +4172,16 @@ def main(argv=None) -> int:
               f"{k}: ptxas reports spills {spilled} or serialised wgmma "
               f"{serial}")
 
-    cases = {}
+    cases, seconds = {}, {}
+    t_phase = time.perf_counter()
+
+    def lap(name):
+        """The seconds since the last lap, kept as phase `name`'s."""
+        nonlocal t_phase
+        now = time.perf_counter()
+        seconds[name] = now - t_phase
+        t_phase = now
+
     if "kernels" in only:
         cases = {"flash_attention_fwd": attention_phase(peaks, dev),
                  "expert_ffn_fwd": ffn_phase(peaks, dev),
@@ -3546,38 +4190,57 @@ def main(argv=None) -> int:
                  "expert_ffn_q_fwd": ffn_q_phase(peaks, dev),
                  "ln_mlp_fwd": ln_mlp_fwd_phase(peaks, dev),
                  "ln_mlp_bwd": ln_mlp_bwd_phase(peaks, dev)}
+        lap("kernels")
     paths = {}
     if "flagship" in only:
-        paths.update(serving=serving_phase(dev), train=train_phase(dev),
-                     int8_serving=int8_serving_phase(dev))
+        paths.update(serving=serving_phase(dev))
+        lap("serving")
+        paths.update(train=train_phase(dev))
+        lap("train")
+        paths.update(int8_serving=int8_serving_phase(dev))
+        lap("int8_serving")
         paths["ln_mlp_serving"], paths["ln_mlp_train"] = \
             ln_mlp_path_phase(dev)
+        lap("ln_mlp")
         for path, phase in (("one_by_one", one_by_one_phase),
                             ("accumulation", accumulation_phase),
                             ("noisy_gate_train", noisy_gate_phase),
                             ("eval_nodrop", eval_nodrop_phase)):
             paths[path] = phase(dev)
             torch.cuda.empty_cache()
+            lap(path)
         paths["dense_serving"], paths["dense_train"] = dense_phase(dev)
         torch.cuda.empty_cache()
+        lap("dense")
     root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         if "cli" in only:
             paths["cli"], paths["cli_synthetic_step"] = cli_phase(dev, root)
             torch.cuda.empty_cache()
+            lap("cli")
             paths.update(recipe_phase(dev, root))
             torch.cuda.empty_cache()
+            lap("recipe")
         if "wide" in only:
             wide_root = os.path.join(root, "wide")
             os.makedirs(wide_root)
             paths.update(wide_phase(dev, wide_root))
             torch.cuda.empty_cache()
+            lap("wide")
         if "parallel" in only:
             ep_root = os.path.join(root, "parallel")
             os.makedirs(ep_root)
             paths.update(parallel_phase(dev, ep_root))
+            torch.cuda.empty_cache()
+            lap("parallel")
+        if "token" in only:
+            token_root = os.path.join(root, "token")
+            os.makedirs(token_root)
+            paths.update(token_phase(dev, token_root))
+            lap("token")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "phase_seconds", **seconds})
 
     kernels = []
     # kernel, its TPU kernel, its paths (the first is the one whose count
@@ -3591,6 +4254,11 @@ def main(argv=None) -> int:
                   "parallel_cli_one_by_one")
     wide_serving = ("wide_serving", "wide_int8_serving", "vit_large_serving",
                     "vit_tiny_serving")
+    # the token slice: the token CLI run, the task-conditioned CLI run (one
+    # by one), the NYUD task-conditioned steps, the ViT-base token step
+    token_train = ("token_cli", "token_tc_cli", "token_tc_nyud_joint",
+                   "token_tc_nyud_shared_prefix", "token_base_train")
+    token_serving_paths = ("token_serving", "token_base_serving")
     fwd_paths = train_paths[:1] + ("serving", "int8_serving",
                                    "ln_mlp_serving") + train_paths[1:] + (
         "eval_nodrop", "dense_serving", "recipe_dropout_eval")
@@ -3598,14 +4266,17 @@ def main(argv=None) -> int:
     for kname, line, on in (
             ("flash_attention_fwd", "flash_attention.py:103",
              fwd_paths + ("recipe_dropout_train",) + wide_train
-             + ("vit_large_ln_mlp_train",) + wide_serving),
+             + ("vit_large_ln_mlp_train",) + wide_serving + token_train
+             + token_serving_paths),
             ("flash_attention_bwd", "flash_attention.py:125",
              train_paths + ("recipe_dropout_train",) + wide_train
-             + ("vit_large_ln_mlp_train",)),
+             + ("vit_large_ln_mlp_train",) + token_train),
             ("expert_ffn_fwd", "expert_ffn.py:145",
-             fwd_paths + wide_train + wide_serving + ("parallel_dispatch",)),
+             fwd_paths + wide_train + wide_serving + ("parallel_dispatch",)
+             + token_train + token_serving_paths),
             ("expert_ffn_bwd", "expert_ffn.py:203",
-             train_paths + wide_train + ("parallel_dispatch",)),
+             train_paths + wide_train + ("parallel_dispatch",)
+             + token_train),
             ("ln_mlp_fwd", "ln_mlp.py:129",
              ("ln_mlp_train", "ln_mlp_serving", "wide_cli_ln_mlp",
               "wide_cli_ln_mlp_synthetic_step", "vit_large_ln_mlp_train")),

@@ -80,9 +80,11 @@ from m3vit_tpu_torch.evaluation.orchestrate import (
 )
 from m3vit_tpu_torch.losses.schemes import build_loss_fns
 from m3vit_tpu_torch.models.factory import build_model
+from m3vit_tpu_torch.models.token_moe import TokenMultiTaskModel
 from m3vit_tpu_torch.models.vit_moe import VisionTransformerMoE
 from m3vit_tpu_torch.moe.dispatch import parse_capacity_factor
-from m3vit_tpu_torch.train.optim import build_optimizer
+from m3vit_tpu_torch.train.optim import build_optimizer, \
+    share_pred_temperature
 from m3vit_tpu_torch.train.step import (
     make_eval_step,
     make_one_by_one_train_step,
@@ -105,12 +107,13 @@ from m3vit_tpu_torch.utils.torch_interop import (
     deit_to_backbone_params,
     load_into_model,
     load_reference_checkpoint,
+    load_reference_token_state_dict,
     load_torch_state_dict,
     validate_reference_moe_checkpoint,
 )
 
-_ITEM7 = ("the token variant, task-conditioned models and research knobs, "
-          "ROADMAP.md queue 1 item 7")
+_ITEM7 = ("the research knobs, stacked tasks and the scan strategies, "
+          "ROADMAP.md queue 1 item 7b")
 _ITEM10 = "sequence parallelism, ROADMAP.md queue 1 item 10"
 
 #: flags of the JAX CLI whose feature the port lacks: (flag, takes a
@@ -119,8 +122,6 @@ UNPORTED = (
     ("--n_seq", True, _ITEM10),
     ("--stacked_tasks", False, _ITEM7), ("--scan_tasks", False, _ITEM7),
     ("--scan_blocks", False, _ITEM7), ("--no_scan_tasks_remat", False, _ITEM7),
-    ("--task_one_hot", False, _ITEM7),
-    ("--gate_task_specific_dim", True, _ITEM7),
     ("--expert_prune", False, _ITEM7),
     ("--regu_experts_fromtask", False, _ITEM7),
     ("--num_experts_pertask", True, _ITEM7), ("--regu_sem", False, _ITEM7),
@@ -128,8 +129,6 @@ UNPORTED = (
     ("--semregu_loss_weight", True, _ITEM7),
     ("--subimageregu_weight", True, _ITEM7),
     ("--warmup_epochs", True, _ITEM7), ("--gate_input_ahead", False, _ITEM7),
-    ("--share_gamma", True, _ITEM7), ("--bootstrap_share_gamma", True, _ITEM7),
-    ("--bootstrap_first_moe", True, _ITEM7),
     ("--platform", True, "a JAX option; the port takes --device"),
 )
 
@@ -163,6 +162,26 @@ def parse_args(argv=None):
                          "accumulation_steps batches; reference "
                          "train_utils.py:370-421); the joint step's "
                          "gradients at ~1/T of its peak memory")
+    ap.add_argument("--task_one_hot", action="store_true",
+                    help="task-conditioned MoE (the config's "
+                         "gate_task_specific_dim > 0 on one shared "
+                         "router); implies --one_by_one (reference "
+                         "train_fastmoe.py:206-207)")
+    ap.add_argument("--gate_task_specific_dim", type=int, default=None,
+                    help="width of the task feature on the shared "
+                         "router's input, and the token model's task "
+                         "embedding (over the YAML's)")
+    # the token variant's sharing knobs (reference token/*)
+    ap.add_argument("--share_gamma", type=float, default=None,
+                    help="shareability threshold of the token model")
+    ap.add_argument("--bootstrap_share_gamma", type=float, default=None,
+                    help="the threshold at the token model's first MoE "
+                         "block")
+    ap.add_argument("--bootstrap_first_moe",
+                    type=lambda v: v.lower() not in ("0", "false", "no"),
+                    default=None,
+                    help="use the bootstrap threshold at the first MoE "
+                         "block (true | false)")
     ap.add_argument("--use_checkpointing", action="store_true", default=None,
                     help="rematerialise the backbone's blocks in the "
                          "backward (over the YAML's use_checkpointing)")
@@ -419,7 +438,9 @@ def _config(args):
                   "moe_capacity_factor", "moe_eval_capacity_factor",
                   "epochs", "trBatch", "valBatch", "compute_dtype",
                   "save_dir", "run_name", "accumulation_steps",
-                  "moe_gate_type", "moe_mlp_ratio")
+                  "moe_gate_type", "moe_mlp_ratio", "gate_task_specific_dim",
+                  "share_gamma", "bootstrap_share_gamma",
+                  "bootstrap_first_moe")
         if getattr(args, k) is not None
     }
     if args.allow_eval_drops:
@@ -442,11 +463,20 @@ def _config(args):
         overrides["overfit"] = True
     p = create_config(args.config_env, args.config_exp, overrides,
                       make_dirs=True)
+    conditioned = int(p.get("gate_task_specific_dim", -1)) > 0
+    if args.task_one_hot:
+        # task-conditioned training is one task a pass (reference
+        # train_fastmoe.py:206-207; cli/train.py:356-361)
+        args.one_by_one = True
+        if not conditioned:
+            print("WARNING: --task_one_hot without gate_task_specific_dim "
+                  "> 0 leaves the gate unconditioned")
     if p.get("shared_prefix") and not (
-            p.get("multi_gate")
+            (p.get("multi_gate") or conditioned)
             and p.get("backbone") == "VisionTransformer_moe"):
-        print("WARNING: shared_prefix needs per-task routing (multi_gate) "
-              "on the VisionTransformer_moe backbone; ignored")
+        print("WARNING: shared_prefix needs per-task routing (multi_gate "
+              "or the task-conditioned router) on the "
+              "VisionTransformer_moe backbone; ignored")
         p["shared_prefix"] = False
     if args.lr is not None:
         p["optimizer_kwargs"]["lr"] = args.lr
@@ -509,7 +539,12 @@ def import_reference_checkpoint(model: torch.nn.Module, path: str, p: Dict):
     ckpt, sd = load_reference_checkpoint(path)
     validate_reference_moe_checkpoint(ckpt, sd, int(p.get("moe_experts", 16)),
                                       path)
-    missing = load_into_model(model, sd)
+    if isinstance(model, TokenMultiTaskModel):
+        # the token model's names are the reference's: all or nothing
+        load_reference_token_state_dict(model, sd)
+        missing = []
+    else:
+        missing = load_into_model(model, sd)
     epoch = ckpt.get("epoch") if isinstance(ckpt, dict) else None
     print(f"imported reference checkpoint {path} (epoch={epoch}, "
           f"missing={len(missing)})")
@@ -525,7 +560,9 @@ def run(args) -> Dict:
     step's call returned)], no device sync) and "state" ({"model",
     "optimizer", "train_step"}, as the run left them); with --pretrained
     or --ref_ckpt also "pretrained_missing" / "ref_ckpt_missing", the
-    parameters the checkpoint left at their initial values."""
+    parameters the checkpoint left at their initial values; for a token
+    model with a temperature schedule "share_temps" ({epoch: the Gumbel
+    temperature})."""
     _refuse_unported(args)
     layout, joined = _parallel_layout(args)
     device = resolve_device(args.device) if layout is None else layout.device
@@ -743,6 +780,11 @@ def _run(args, p, device, logger, loaders, preempted, layout=None) -> Dict:
     best: Optional[Dict] = None
     opt_steps_per_epoch = max(steps_per_epoch // accum, 1)
     metrics: Dict = {}
+    # the token model's Gumbel temperature follows a per-epoch schedule
+    # (m3vit_tpu/cli/train.py:632-652, :789-814); the one-by-one step runs
+    # at the heads' default, as there
+    use_share_temp = isinstance(model, TokenMultiTaskModel) \
+        and share_pred_temperature(p, 0) is not None and not args.one_by_one
 
     for epoch in range(start_epoch, epochs):
         t_epoch = time.time()
@@ -756,6 +798,12 @@ def _run(args, p, device, logger, loaders, preempted, layout=None) -> Dict:
         # a mid-epoch resume starts the sampler at it0: the batches before
         # it are never read
         batches = to_device(train_loader.epoch(epoch, start=it0), device)
+        step_kw = {}
+        if use_share_temp:
+            step_kw["share_temp"] = share_pred_temperature(p, epoch)
+            out.setdefault("share_temps", {})[epoch] = step_kw["share_temp"]
+            print(f"[epoch {epoch}] share_pred temperature = "
+                  f"{step_kw['share_temp']:.4f}")
         t_win = time.time()
         profiling = None
         if args.profile_dir and epoch == start_epoch:
@@ -768,7 +816,7 @@ def _run(args, p, device, logger, loaders, preempted, layout=None) -> Dict:
             # this step's gate noise, from (seed, the step's index)
             noise = torch.Generator(device=device).manual_seed(
                 step_seed(args.seed, epoch * steps_per_epoch + it))
-            metrics = train_step(batch, noise)
+            metrics = train_step(batch, noise, **step_kw)
             if profiling is not None and it == it0 + 2:
                 # the first three steps (m3vit_tpu/cli/train.py:797-799)
                 profiling.__exit__(None, None, None)

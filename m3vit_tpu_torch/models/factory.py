@@ -3,7 +3,10 @@
 ``build_model(p)`` is the counterpart of m3vit_tpu/models/factory.py
 (build_backbone :53-121, build_head :146-167, build_model :248): it reads
 the plain dict a reference-schema YAML holds and builds the ``baseline``
-model on the dense or the MoE ViT with PUP heads, single- or multi-task.
+model on the dense or the MoE ViT with PUP heads, single- or multi-task,
+the task-conditioned model (gate_task_specific_dim > 0, one shared
+router), or the token persistent-sharing model (its backbone names,
+factory.py:276-318).
 ``build_flagship`` is ViT-small-MoE, multi-gate, 5 PASCAL tasks (defaults
 of __graft_entry__.py:build_flagship :32-81: train capacity factor 1.25,
 eval 2.0, gate noise std 1.0).
@@ -16,7 +19,14 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from m3vit_tpu_torch.models.heads import VisionTransformerUpHead
-from m3vit_tpu_torch.models.multitask import MultiTaskModel, SingleTaskModel
+from m3vit_tpu_torch.models.multitask import (
+    MultiTaskModel,
+    SingleTaskModel,
+)
+from m3vit_tpu_torch.models.token_moe import (
+    TokenMultiTaskModel,
+    TokenVisionTransformerMoE,
+)
 from m3vit_tpu_torch.models.vit import VisionTransformer
 from m3vit_tpu_torch.models.vit_moe import VisionTransformerMoE
 from m3vit_tpu_torch.moe.dispatch import parse_capacity_factor
@@ -81,6 +91,10 @@ def build_flagship(img: int = 512, embed: int = 384, depth: int = 12,
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+#: the backbone names of the token variant (factory.py:276-277)
+TOKEN_BACKBONES = ("TokenVisionTransformer_moe", "Token_VisionTransformer_moe",
+                   "token_moe")
+
 
 def _img_size(kw) -> Tuple[int, int]:
     v = kw.get("img_size", (512, 512))
@@ -110,10 +124,6 @@ def build_backbone(p: Dict, num_tasks: int):
         use_checkpointing=bool(p.get("use_checkpointing", False)),
     )
     if name == "VisionTransformer_moe":
-        if int(p.get("gate_task_specific_dim", -1)) > 0:
-            raise NotImplementedError(
-                "gate_task_specific_dim (the task-conditioned gate) is not "
-                "ported to m3vit_tpu_torch (ROADMAP queue 1 item 7)")
         gate_dim = int(kw.get("gate_dim", -1))
         n = int(p.get("moe_num_tasks", gate_dim - common["embed_dim"]
                       if gate_dim > 0 else 0))
@@ -132,6 +142,7 @@ def build_backbone(p: Dict, num_tasks: int):
                 p.get("moe_eval_capacity_factor", 4.0)),
             moe_gate_type=str(p.get("moe_gate_type", "noisy_vmoe")),
             expert_weights_int8=bool(p.get("expert_weights_int8", False)),
+            gate_task_specific_dim=int(p.get("gate_task_specific_dim", -1)),
             **{k: p.get(k, False) for k in (
                 "scan_blocks", "expert_prune", "regu_experts_fromtask",
                 "sem_force", "regu_sem", "regu_subimage",
@@ -141,7 +152,35 @@ def build_backbone(p: Dict, num_tasks: int):
         return VisionTransformer(**common)
     raise NotImplementedError(
         f"backbone {name!r} is not ported to m3vit_tpu_torch (CNN backbones "
-        f"and the token variant come with ROADMAP queue 1 items 7 and 8)")
+        f"come with ROADMAP queue 1 item 8)")
+
+
+def build_token_backbone(p: Dict, num_tasks: int) -> TokenVisionTransformerMoE:
+    """The token persistent-sharing backbone of config `p`
+    (factory.py:278-309), with its own defaults: moe_mlp_ratio 1.0,
+    gate_task_specific_dim 64, use_checkpointing off."""
+    kw = dict(p.get("backbone_kwargs") or {})
+    return TokenVisionTransformerMoE(
+        img_size=_img_size(kw), patch_size=int(kw.get("patch_size", 16)),
+        embed_dim=int(kw.get("embed_dim", 384)),
+        depth=int(kw.get("depth", 12)), num_heads=int(kw.get("num_heads", 6)),
+        mlp_ratio=float(kw.get("mlp_ratio", 4.0)),
+        moe_mlp_ratio=float(kw.get("moe_mlp_ratio", 1.0)),
+        moe_experts=int(p.get("moe_experts", 16)),
+        moe_top_k=int(p.get("moe_top_k", 4)),
+        multi_gate=bool(p.get("multi_gate", False)), num_tasks=num_tasks,
+        gate_task_specific_dim=int(p.get("gate_task_specific_dim", 64)),
+        share_gamma=float(p.get("share_gamma", 0.5)),
+        bootstrap_share_gamma=float(p.get("bootstrap_share_gamma", 0.3)),
+        bootstrap_first_moe=bool(p.get("bootstrap_first_moe", True)),
+        share_reg_lambda=float(p.get("share_reg_lambda", 0.01)),
+        capacity_factor=parse_capacity_factor(
+            p.get("moe_capacity_factor", 2.0)),
+        eval_capacity_factor=parse_capacity_factor(
+            p.get("moe_eval_capacity_factor", 4.0)),
+        batched_dispatch=bool(p.get("batched_dispatch", False)),
+        dtype=_DTYPES[p.get("compute_dtype", "bfloat16")],
+        use_checkpointing=bool(p.get("use_checkpointing", False)))
 
 
 def build_head(p: Dict, num_output: int) -> VisionTransformerUpHead:
@@ -150,11 +189,12 @@ def build_head(p: Dict, num_output: int) -> VisionTransformerUpHead:
     convs and four upsamplings), returning TAM's features in training when
     model_kwargs.tam is set."""
     name = p.get("head", "VisionTransformerUpHead")
-    if name != "VisionTransformerUpHead":
+    # the reference's token head is the same PUP head (factory.py:151-153)
+    if name not in ("VisionTransformerUpHead",
+                    "TokenVisionTransformerUpHead"):
         raise NotImplementedError(
-            f"head {name!r} is not ported to m3vit_tpu_torch (the token, "
-            f"deeplab and hrnet heads come with ROADMAP queue 1 items 7 and "
-            f"8)")
+            f"head {name!r} is not ported to m3vit_tpu_torch (the deeplab "
+            f"and hrnet heads come with ROADMAP queue 1 item 8)")
     kw = dict(p.get("head_kwargs") or {})
     shape = (int(kw.get("num_conv", 4)), int(kw.get(
         "num_upsampe_layer", kw.get("num_upsample_layer", 4))),
@@ -179,25 +219,42 @@ def build_model(p: Dict, device=None, seed: int = 0
     the dense ViT, or a MultiTaskModel of the config's tasks on the MoE
     ViT, as the JAX package builds them; model_kwargs.tam adds TAM at the
     levels tam_level{0,1,2} (each on unless set false; factory.py:341-352).
-    use_checkpointing rematerialises the backbone's blocks in training.
+    A multi-task config with gate_task_specific_dim > 0 and no multi_gate
+    runs one backbone pass a task, each with its task feature on the one
+    router (the TaskConditionedMultiTaskModel, factory.py:334-338); a token
+    backbone name the TokenMultiTaskModel, whatever `model` says
+    (factory.py:276-318).  use_checkpointing rematerialises the backbone's
+    blocks in training.
     Weights are f32, drawn from `seed`; the model is returned in eval mode
     on the card unless device="cpu" (raises when CUDA is absent and no
     device was given)."""
     dev = resolve_device(device)
     model_name = p.get("model", "baseline")
-    if model_name != "baseline":
-        item, what = (7, "the token variant") if model_name.startswith(
-            "token") else (8, "the MTL methods and mixture_baseline")
+    token = p.get("backbone") in TOKEN_BACKBONES
+    if model_name not in ("baseline", "token_moe"):
         raise NotImplementedError(
-            f"model {model_name!r} is not ported to m3vit_tpu_torch ({what}: "
-            f"ROADMAP queue 1 item {item})")
+            f"model {model_name!r} is not ported to m3vit_tpu_torch (the MTL "
+            f"methods and mixture_baseline: ROADMAP queue 1 item 8)")
     tasks = parse_task_dictionary(p["train_db_name"], p["task_dictionary"])[0]
     names = [t.name for t in tasks]
-    backbone = build_backbone(p, len(tasks))
     decoders = {t.name: build_head(p, t.num_output) for t in tasks}
     multi_gate = bool(p.get("multi_gate", False))
-    if p["setup"] == "single_task" and isinstance(backbone,
-                                                  VisionTransformer):
+    if token:
+        model = TokenMultiTaskModel(build_token_backbone(p, len(tasks)),
+                                    decoders, names)
+        init_weights(model, torch.Generator().manual_seed(seed))
+        return model.to(dev).eval(), tasks
+    backbone = build_backbone(p, len(tasks))
+    conditioned = p["setup"] == "multi_task" and int(
+        p.get("gate_task_specific_dim", -1)) > 0
+    if conditioned and not multi_gate:
+        model = MultiTaskModel(
+            backbone, decoders, names, multi_gate=True,
+            shared_prefix=bool(p.get("shared_prefix", False)),
+            stacked_tasks=p.get("stacked_tasks", False),
+            scan_tasks=p.get("scan_tasks", False))
+    elif p["setup"] == "single_task" and isinstance(backbone,
+                                                    VisionTransformer):
         model = SingleTaskModel(backbone, decoders[names[0]], names[0])
     elif p["setup"] in ("single_task", "multi_task"):
         mk = p.get("model_kwargs") or {}

@@ -4,7 +4,10 @@ m3vit_tpu/models/multitask.py: SingleTaskModel :22-37, MultiTaskModel
 
 multi_gate: one backbone pass per task with that task's routers
 (multitask.py:199-207), or with shared_prefix the task-independent prefix
-once and the rest per task (multitask.py:157-167).  single_task runs one
+once and the rest per task (multitask.py:157-167); a backbone whose one
+router reads the task feature (``gate_task_represent``) runs so too, as
+the JAX package's TaskConditionedMultiTaskModel does (multitask.py:
+230-269).  single_task runs one
 task's pathway only (multitask.py:121-127): the sparse serving path.
 Outputs are NCHW, bilinearly resized to the input size; every forward
 returns (pred_dict, cv_loss, moe_stats) like the JAX model.  The module's
@@ -134,3 +137,4 @@ class MultiTaskModel(nn.Module):
                         out[f"tam_level{lvl}_{task}"] = resize_bilinear(
                             tam_out[task], out_size)
         return out, total_cv, stats
+

@@ -45,7 +45,7 @@ def reject_left_out(knobs: Dict) -> None:
         if v:
             raise NotImplementedError(
                 f"{k} is not ported to m3vit_tpu_torch (ROADMAP.md queue 1 "
-                f"item 7)")
+                f"item 7b)")
 
 
 @torch.no_grad()

@@ -20,6 +20,12 @@ mode.  ``ln_mlp`` is the JAX package's ``use_pallas_ln_mlp``: the dense
 blocks' LayerNorm + MLP + residual run as one fused sublayer
 (``ops/ln_mlp.py``) on the same parameters.
 
+With ``gate_task_specific_dim`` > 0 and one shared router (not
+multi_gate) the router is task-conditioned (vit_moe.py:152-166, :232-240,
+:882-892): ``gate_task_represent`` (``TaskRepresentMlp``) maps the task's
+one-hot to a feature that is concatenated to every token's gate input, so
+a forward still takes the task id whose pathway it runs.
+
 Under data and expert parallelism (``parallel.shard_experts`` sets an MoE
 block's ``layout``) a block holds its rank's expert shard and exchanges
 tokens over the expert group; its gate noise is the rank's rows of the
@@ -107,6 +113,33 @@ def collect_gate_stats(model: nn.Module):
             m.gate_stats = flag
 
 
+class TaskRepresentMlp(nn.Module):
+    """Task one-hot -> gate feature: fc1 -> exact GELU -> fc2 -> LayerNorm
+    (eps 1e-6), all in f32 (vit_moe.py:152-166; reference new_Mlp,
+    vision_transformer_moe.py:263-281)."""
+
+    def __init__(self, num_tasks: int, hidden_dim: int, out_dim: int):
+        super().__init__()
+        self.num_tasks = num_tasks
+        self.fc1 = nn.Linear(num_tasks, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, out_dim)
+        self.norm = nn.LayerNorm(out_dim, eps=1e-6)
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        for lin in (self.fc1, self.fc2):
+            fill_normal(lin.weight, 0.02, gen)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, task_ids) -> torch.Tensor:
+        """Features [len(task_ids), out_dim] of the tasks `task_ids` (ids
+        clipped into range, as jnp.clip does), or [out_dim] of one id."""
+        ids = torch.as_tensor(task_ids, device=self.fc1.weight.device)
+        one_hot = torch.nn.functional.one_hot(
+            ids.clamp(0, self.num_tasks - 1), self.num_tasks).float()
+        h = torch.nn.functional.gelu(self.fc1(one_hot))
+        return layer_norm(self.norm, self.fc2(h))
+
+
 class NoisyGate(nn.Module):
     """One router: w_gate [d, E] f32 (reference noisy_gate_vmoe.py), and
     with learned_noise the noise weights w_noise [d, E] of the
@@ -187,7 +220,8 @@ class MoEMlp(nn.Module):
                  vmoe_noisy_std: float = 1.0, capacity_factor: float = 2.0,
                  eval_capacity_factor: float = 4.0,
                  expert_weights_int8: bool = False,
-                 gate_type: str = "noisy_vmoe", drop: float = 0.0):
+                 gate_type: str = "noisy_vmoe", drop: float = 0.0,
+                 gate_task_specific_dim: int = -1):
         super().__init__()
         if gate_type not in GATE_TYPES:
             raise ValueError(f"gate_type {gate_type!r} is not one of "
@@ -210,7 +244,9 @@ class MoEMlp(nn.Module):
                 NoisyGate(dim, num_experts, learned)
                 for _ in range(num_tasks))
         else:
-            self.gate = NoisyGate(dim, num_experts, learned)
+            # the task-conditioned router reads the task feature too
+            d_task = max(int(gate_task_specific_dim), 0)
+            self.gate = NoisyGate(dim + d_task, num_experts, learned)
         self.experts = Experts(num_experts, dim, d_hidden,
                                int8=expert_weights_int8)
         self.use_kernels = True
@@ -220,8 +256,11 @@ class MoEMlp(nn.Module):
         self.a2a_chunks = 1
 
     def forward(self, x: torch.Tensor, task_id: Optional[int],
-                noise: Optional[torch.Generator] = None
+                noise: Optional[torch.Generator] = None,
+                task_feature: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, GateOutput, Dict[str, torch.Tensor]]:
+        """task_feature ([d_task]): the task-conditioned router's feature,
+        concatenated to every token's gate input (vit_moe.py:234-240)."""
         B, N, C = x.shape
         E, K = self.num_experts, self.top_k
         if self.multi_gate:
@@ -245,11 +284,15 @@ class MoEMlp(nn.Module):
             if lay is not None:
                 gate_noise = gate_noise[lay.rank * B * N:
                                         (lay.rank + 1) * B * N]
+        gate_inp = x.reshape(-1, C).float()
+        if task_feature is not None:
+            gate_inp = torch.cat([gate_inp, task_feature.float().expand(
+                B * N, -1)], dim=-1)
         if learned:
-            gate = noisy_gate(x.reshape(-1, C).float(), gate_mod.w_gate,
+            gate = noisy_gate(gate_inp, gate_mod.w_gate,
                               gate_mod.w_noise, top_k=K, noise=gate_noise)
         else:
-            gate = noisy_vmoe_gate(x.reshape(-1, C).float(), gate_mod.w_gate,
+            gate = noisy_vmoe_gate(gate_inp, gate_mod.w_gate,
                                    top_k=K, noise_std=self.vmoe_noisy_std,
                                    noise=gate_noise)
         top_idx = gate.top_k_indices.reshape(B, N, K)
@@ -353,7 +396,8 @@ class MoEBlock(nn.Module):
                  eval_capacity_factor: float = 4.0, dtype=torch.float32,
                  expert_weights_int8: bool = False,
                  gate_type: str = "noisy_vmoe", drop: float = 0.0,
-                 attn_drop: float = 0.0, drop_path_rate: float = 0.0):
+                 attn_drop: float = 0.0, drop_path_rate: float = 0.0,
+                 gate_task_specific_dim: int = -1):
         super().__init__()
         self.dtype = dtype
         self.drop_path_rate = drop_path_rate
@@ -364,22 +408,25 @@ class MoEBlock(nn.Module):
         self.mlp = MoEMlp(dim, moe_experts, moe_hidden_dim, moe_top_k,
                           multi_gate, num_tasks, vmoe_noisy_std,
                           capacity_factor, eval_capacity_factor,
-                          expert_weights_int8, gate_type, drop)
+                          expert_weights_int8, gate_type, drop,
+                          gate_task_specific_dim)
 
     def _drop_path(self, h, rng):
         return drop_path(h, self.drop_path_rate, rng) if self.training \
             else h
 
     def forward(self, x: torch.Tensor, task_id: Optional[int],
-                noise: Optional[torch.Generator] = None, stage: str = "full"):
-        """Returns (tokens, cv loss, stats); cv is 0 outside training."""
+                noise: Optional[torch.Generator] = None, stage: str = "full",
+                task_feature: Optional[torch.Tensor] = None):
+        """Returns (tokens, cv loss, stats); cv is 0 outside training.
+        task_feature: the task-conditioned router's feature, or None."""
         if stage != "moe":
             x = x + self._drop_path(self.attn(
                 layer_norm(self.norm1, x).to(self.dtype), noise), noise)
             if stage == "attn":
                 return x, torch.zeros((), device=x.device), {}
         h = layer_norm(self.norm2, x).to(self.dtype)
-        moe_out, gate, stats = self.mlp(h, task_id, noise)
+        moe_out, gate, stats = self.mlp(h, task_id, noise, task_feature)
         if self.training:
             moe_out = dropout(moe_out, self.mlp.drop, noise)
         return x + self._drop_path(moe_out, noise), self.mlp.aux_loss(gate), \
@@ -393,7 +440,8 @@ class VisionTransformerMoE(nn.Module):
     blocks).  drop_rate, attn_drop_rate and drop_path_rate act in
     training, their masks drawn from the forward's generator;
     use_checkpointing rematerialises each block in training
-    (vit_moe.py:904-908)."""
+    (vit_moe.py:904-908).  gate_task_specific_dim > 0 without multi_gate
+    conditions the shared router on the task (``gate_task_represent``)."""
 
     def __init__(self, img_size=(512, 512), patch_size: int = 16,
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
@@ -406,10 +454,18 @@ class VisionTransformerMoE(nn.Module):
                  expert_weights_int8: bool = False, ln_mlp: bool = False,
                  moe_gate_type: str = "noisy_vmoe", drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
-                 use_checkpointing: bool = False, **left_out):
+                 use_checkpointing: bool = False,
+                 gate_task_specific_dim: int = -1, **left_out):
         super().__init__()
         reject_left_out(left_out)
         self.dtype = dtype
+        d_task = int(gate_task_specific_dim) if not multi_gate else -1
+        if d_task > 0 and num_tasks <= 0:
+            raise ValueError("the task-conditioned router needs num_tasks")
+        # the task-conditioned shared router's task feature
+        # (vit_moe.py:882-892)
+        self.gate_task_represent = TaskRepresentMlp(
+            num_tasks, d_task, d_task) if d_task > 0 else None
         self.drop_rate = drop_rate
         self.attn_drop_rate = attn_drop_rate
         self.drop_path_rate = drop_path_rate
@@ -430,7 +486,7 @@ class VisionTransformerMoE(nn.Module):
                      multi_gate, num_tasks, qkv_bias, qk_scale,
                      vmoe_noisy_std, capacity_factor, eval_capacity_factor,
                      dtype, expert_weights_int8, moe_gate_type, drop_rate,
-                     attn_drop_rate, dpr)
+                     attn_drop_rate, dpr, d_task)
             for i, dpr in enumerate(drop_path_rates(drop_path_rate, depth)))
 
     def init_weights(self, gen: torch.Generator) -> None:
@@ -445,8 +501,17 @@ class VisionTransformerMoE(nn.Module):
                 "expert_weights_int8 to train)")
         return super().train(mode)
 
+    def _task_feature(self, task_id):
+        """The task-conditioned router's feature of task_id (an int, or a
+        sequence of ids: one row each), or None without that router."""
+        if self.gate_task_represent is None:
+            return None
+        if task_id is None:
+            raise ValueError("the task-conditioned router needs a task_id")
+        return self.gate_task_represent(task_id)
+
     def _run_blocks(self, tokens, task_id, start: int, start_stage: str,
-                    noise):
+                    noise, task_feature=None):
         total_cv = torch.zeros((), device=tokens.device)
         stats: Dict[str, torch.Tensor] = {}
         for i in range(start, len(self.blocks)):
@@ -454,7 +519,7 @@ class VisionTransformerMoE(nn.Module):
             if isinstance(blk, MoEBlock):
                 stage = start_stage if i == start else "full"
                 tokens, cv, st = run_block(self, blk, noise, tokens, task_id,
-                                           noise, stage)
+                                           noise, stage, task_feature)
                 total_cv = total_cv + cv
                 stats = add_stats(stats, st)
             else:
@@ -468,7 +533,9 @@ class VisionTransformerMoE(nn.Module):
         sequence of task ids; then the prefix (patch embed, the leading
         dense block and the first MoE block's attention) runs once and the
         rest once per task, and the tokens come back task-major
-        [T*B, 1+N, C] (vit_moe.py:1057-1101).  Training with dropout would
+        [T*B, 1+N, C] (vit_moe.py:1057-1101); so does the task-conditioned
+        router's (each branch with its task's feature).  Training with
+        dropout would
         share the prefix's masks across tasks, so it raises; with
         drop-path the first MoE block's attention runs per task."""
         if shared_prefix and self.training and (self.drop_rate > 0
@@ -477,8 +544,10 @@ class VisionTransformerMoE(nn.Module):
                              "dropout masks across tasks; train with "
                              "dropout without it (vit_moe.py:860-864)")
         tokens = embed_tokens(self, x, noise)
+        task_feature = self._task_feature(task_id)
         if not shared_prefix:
-            return self._run_blocks(tokens, task_id, 0, "full", noise)
+            return self._run_blocks(tokens, task_id, 0, "full", noise,
+                                    task_feature)
         task_ids: Sequence[int] = task_id
         n_prefix = 0
         while n_prefix < len(self.blocks) and n_prefix % 2 == 0:
@@ -492,9 +561,10 @@ class VisionTransformerMoE(nn.Module):
                                      tokens, None, noise, "attn")
             start_stage = "moe"
         feats, total_cv, stats = [], torch.zeros((), device=x.device), {}
-        for tid in task_ids:
-            f, cv, st = self._run_blocks(tokens, tid, n_prefix, start_stage,
-                                         noise)
+        for t, tid in enumerate(task_ids):
+            f, cv, st = self._run_blocks(
+                tokens, tid, n_prefix, start_stage, noise,
+                None if task_feature is None else task_feature[t])
             feats.append(f)
             total_cv = total_cv + cv
             stats = add_stats(stats, st)

@@ -236,25 +236,53 @@ def expert_ffn_dense(h: torch.Tensor,
                                   rng)
 
 
+def stream_slot_ids(top_k_indices: torch.Tensor, stream_ids: torch.Tensor,
+                    num_experts: int, num_streams: int) -> torch.Tensor:
+    """Virtual expert id e * num_streams + s of each routing slot of a
+    token of stream s (dispatch.py:345-363): each (stream, expert) pair
+    gets a capacity bucket of its own, and the ids being expert-major, the
+    [E * num_streams * C, d] buffer is [E, num_streams * C, d] with no
+    data movement.  Masked ids (>= E) stay masked (E * num_streams)."""
+    return torch.where(top_k_indices < num_experts,
+                       top_k_indices * num_streams + stream_ids[:, None],
+                       num_experts * num_streams)
+
+
+def _plan(top_k_indices, scores, num_experts: int, capacity: int,
+          num_streams: int, stream_ids):
+    """The dispatch plan and each expert slot's token (T for an empty
+    slot), by virtual id when num_streams > 1."""
+    K = top_k_indices.shape[-1]
+    ids = top_k_indices if num_streams == 1 else stream_slot_ids(
+        top_k_indices, stream_ids, num_experts, num_streams)
+    plan = make_dispatch_plan(ids.reshape(-1), num_experts * num_streams,
+                              capacity, scores.reshape(-1))
+    return plan, torch.div(plan.src_flat, K, rounding_mode="floor")
+
+
 def moe_ffn_local(x: torch.Tensor, top_k_indices: torch.Tensor,
                   top_k_gates: torch.Tensor,
                   params: Union[MoEFfnParams, MoEFfnParamsQ], *,
                   capacity: int, use_kernels: bool = True,
                   dropout_rate: float = 0.0,
-                  rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                  rng: Optional[torch.Generator] = None,
+                  num_streams: int = 1,
+                  stream_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-shard MoE FFN: gather-dispatch -> per-expert FFN -> combine
     (dispatch.py:367-412).  The FFN runs in x's dtype; with float banks it
     is differentiable in x, top_k_gates and the expert weights, an int8
     pack runs the inference-only quantized FFN.  dropout_rate > 0 (pass it
     in training only) runs the plain FFN with dropout on its hidden
-    activation (dispatch.py:394-396)."""
+    activation (dispatch.py:394-396).  With num_streams > 1 the tokens
+    belong to the streams `stream_ids` ([T]) and `capacity` is per
+    (stream, expert): each expert's buffer holds num_streams * capacity
+    rows."""
     T, d = x.shape
-    K = top_k_indices.shape[-1]
     E = params.w1.shape[0]
     scores = top_k_gates.float()
-    plan = make_dispatch_plan(top_k_indices.reshape(-1), E, capacity,
-                              scores.reshape(-1))
-    src_tok = torch.div(plan.src_flat, K, rounding_mode="floor")
+    plan, src_tok = _plan(top_k_indices, scores, E, capacity, num_streams,
+                          stream_ids)
+    capacity = num_streams * capacity
     h = dispatch_gather(x, src_tok, plan.dst).reshape(E, capacity, d)
     if dropout_rate > 0.0:
         y = expert_ffn_dense(h, params, x.dtype, dropout_rate, rng)
@@ -320,7 +348,9 @@ def moe_ffn_expert_parallel(x: torch.Tensor, top_k_indices: torch.Tensor,
                             capacity: int, use_kernels: bool = True,
                             dropout_rate: float = 0.0,
                             rng: Optional[torch.Generator] = None,
-                            n_chunks: int = 1) -> torch.Tensor:
+                            n_chunks: int = 1, num_streams: int = 1,
+                            stream_ids: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Expert-parallel MoE FFN of one rank (dispatch.py:415-515).  x
     [T, d] is the rank's tokens, top_k_indices [T, K] global expert ids,
     params the rank's expert shard ([E_local, ...], E_local = E / ep for
@@ -332,9 +362,11 @@ def moe_ffn_expert_parallel(x: torch.Tensor, top_k_indices: torch.Tensor,
     the collectives can run beside the FFNs.  Rows and weights per expert
     are those of n_chunks = 1.  Differentiable in x, top_k_gates and the
     shard's weights; with dropout_rate > 0 the plain FFN with dropout, its
-    masks drawn per chunk from `rng`."""
+    masks drawn per chunk from `rng`.  num_streams / stream_ids as
+    moe_ffn_local's: `capacity` is then per (source rank, stream, global
+    expert), and an expert's rows are num_streams * capacity a source
+    (dispatch.py:429-440)."""
     T, d = x.shape
-    K = top_k_indices.shape[-1]
     ep = dist.get_world_size(group)
     E = int(num_experts_global)
     if E % ep:
@@ -344,11 +376,10 @@ def moe_ffn_expert_parallel(x: torch.Tensor, top_k_indices: torch.Tensor,
     if params.w1.shape[0] != E_local:
         raise ValueError(f"the expert shard holds {params.w1.shape[0]} "
                          f"experts, expected {E_local} = {E} / {ep}")
-    cap = int(capacity)
     scores = top_k_gates.float()
-    plan = make_dispatch_plan(top_k_indices.reshape(-1), E, cap,
-                              scores.reshape(-1))
-    src_tok = torch.div(plan.src_flat, K, rounding_mode="floor")
+    plan, src_tok = _plan(top_k_indices, scores, E, int(capacity),
+                          num_streams, stream_ids)
+    cap = num_streams * int(capacity)   # buffer rows per (source, expert)
     send = dispatch_gather(x, src_tok, plan.dst).reshape(ep, E_local, cap, d)
     C = a2a_chunk_count(E_local, n_chunks)
     Eg = E_local // C
@@ -416,3 +447,37 @@ def moe_ffn(x: torch.Tensor, top_k_indices: torch.Tensor,
                         use_kernels=use_kernels, dropout_rate=dropout_rate,
                         rng=rng)
     return out.reshape(x.shape)
+
+
+def moe_ffn_streams(x: torch.Tensor, top_k_indices: torch.Tensor,
+                    top_k_gates: torch.Tensor, params: MoEFfnParams, *,
+                    capacity_factor: float = 2.0, use_kernels: bool = True,
+                    group=None, num_experts_global: Optional[int] = None,
+                    a2a_chunks: int = 1) -> torch.Tensor:
+    """T_s independent token streams x [T_s, S, d] (the token variant's
+    per-task MoE passes; top_k_indices [T_s, S, K], ids == E masked)
+    through one dispatch, one expert FFN launch and one combine
+    (dispatch.py:644-743).  Each (stream, expert) pair keeps a capacity
+    bucket of its own, from S tokens, so the slots, the drops and the
+    output are those of T_s separate moe_ffn calls bit for bit.  With an
+    expert group, S is this rank's tokens of each stream, the capacity
+    per (source rank, stream, expert) and the exchange that of
+    moe_ffn_expert_parallel on the stream-major rows (the JAX package's
+    shard-major layout, in which each device holds the same tokens as T_s
+    per-stream calls would give it)."""
+    Ts, S, d = x.shape
+    K = top_k_indices.shape[-1]
+    E = int(num_experts_global or params.w1.shape[0])
+    cap = compute_capacity(S, K, E, capacity_factor)
+    sid = torch.arange(Ts, device=x.device).repeat_interleave(S)
+    args = (x.reshape(Ts * S, d), top_k_indices.reshape(Ts * S, K),
+            top_k_gates.reshape(Ts * S, K), params)
+    if group is not None:
+        out = moe_ffn_expert_parallel(
+            *args, group=group, num_experts_global=E, capacity=cap,
+            use_kernels=use_kernels, n_chunks=a2a_chunks, num_streams=Ts,
+            stream_ids=sid)
+    else:
+        out = moe_ffn_local(*args, capacity=cap, use_kernels=use_kernels,
+                            num_streams=Ts, stream_ids=sid)
+    return out.reshape(Ts, S, d)

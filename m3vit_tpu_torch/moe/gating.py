@@ -47,21 +47,25 @@ def small_topk(x: torch.Tensor, m: int):
 
 
 def noisy_vmoe_gate(
-    gate_inp: torch.Tensor,
+    gate_inp: Optional[torch.Tensor],
     w_gate: torch.Tensor,
     *,
     top_k: int,
     noise_std: float = 1.0,
     noise: Optional[torch.Tensor] = None,
+    clean_logits: Optional[torch.Tensor] = None,
 ) -> GateOutput:
     """NoisyGate_VMoE forward (m3vit_tpu/moe/gating.py:77-152).
 
     gate_inp [T, d_gate], w_gate [d_gate, E]; logits in f32.  `noise`
     ([T, E] standard normal) is added scaled by noise_std / E, as in
-    training; None is the eval path (no noise).  Differentiable in gate_inp
-    and w_gate."""
+    training; None is the eval path (no noise).  clean_logits, when given
+    ([T, E], computed by the caller: the token variant's batched gates),
+    replaces the product, and gate_inp is not read.  Differentiable in
+    gate_inp and w_gate (or clean_logits)."""
     num_experts = w_gate.shape[-1]
-    clean_logits = gate_inp.float() @ w_gate.float()
+    clean_logits = gate_inp.float() @ w_gate.float() if clean_logits is None \
+        else clean_logits.float()
     if noise is None:
         noise_stddev = torch.zeros(())
         noisy_logits = clean_logits
@@ -141,20 +145,26 @@ def _cv_sum(importance: torch.Tensor, load: torch.Tensor,
 
 
 def moe_aux_loss(gate: GateOutput, top_k: int, num_experts: int,
-                 train: bool, reduce=None) -> torch.Tensor:
+                 train: bool, reduce=None,
+                 row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """cv^2(importance) + cv^2(load) for one MoE block (gating.py:195-244,
     one segment).  Load is the smooth estimator while the noise is active
     (stddev > 1e-6), else the hard count; 0 outside training.  `reduce`
     (differentiable) turns this rank's importance and load into the
     global batch's before cv^2 (data parallelism; gating.py:200-242 sees
-    the whole batch)."""
+    the whole batch).  row_mask ([T] f32 of 0/1): only those tokens count
+    (the token variant's computed tokens; its caller also zeroes the other
+    rows' top_k_gates, which takes them out of the importance and the hard
+    count)."""
     if not train:
         return torch.zeros((), device=gate.clean_logits.device)
     importance = gate_importance(gate)
     if top_k < num_experts and float(gate.noise_stddev) > 1e-6:
-        load = prob_in_top_k(gate.clean_logits, gate.noisy_logits,
-                             gate.noise_stddev, gate.top_logits,
-                             top_k).sum(0)
+        smooth = prob_in_top_k(gate.clean_logits, gate.noisy_logits,
+                               gate.noise_stddev, gate.top_logits, top_k)
+        if row_mask is not None:
+            smooth = smooth * row_mask[:, None]
+        load = smooth.sum(0)
     else:
         load = gate_load_counts(gate)
     return _cv_sum(importance, load, reduce)

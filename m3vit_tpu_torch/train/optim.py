@@ -16,11 +16,15 @@ there) is the train step's part (train/step.py): it applies the update
 to the mean of k micro-batch gradients every k-th call.  The schedule
 built here counts optimizer steps, max(steps_per_epoch // k, 1) per
 epoch.
+
+``share_pred_temperature`` is the token variant's per-epoch Gumbel
+temperature of its shareability heads.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Sequence
+import math
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -94,3 +98,30 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], p: Dict,
     else:
         raise ValueError(f"Invalid optimizer {name}")
     return opt, schedule
+
+
+def share_pred_temperature(p: Dict, epoch: int) -> Optional[float]:
+    """The shareability heads' Gumbel temperature in `epoch`, or None
+    without a schedule (optim.py:88-115; reference
+    compute_share_pred_temperature, common_config.py:927-957): keys
+    share_pred_temp_schedule (none | linear | cosine),
+    share_pred_temp_start / _end and share_pred_temp_warmup_epochs; the
+    start value through the warm-up, then from start to end over the
+    remaining epochs."""
+    schedule = str(p.get("share_pred_temp_schedule", "none")).lower()
+    if schedule in ("none", "off", "false", ""):
+        return None
+    t_start = float(p.get("share_pred_temp_start", 1.0))
+    t_end = float(p.get("share_pred_temp_end", 1.0))
+    warmup = int(p.get("share_pred_temp_warmup_epochs", 0))
+    total = int(p.get("epochs", 1))
+    if total <= 1 or epoch < warmup:
+        return t_start
+    progress = min(1.0, max(0.0, (epoch - warmup)
+                            / float(max(1, total - warmup - 1))))
+    if schedule == "linear":
+        return t_start + (t_end - t_start) * progress
+    if schedule == "cosine":
+        return t_end + 0.5 * (t_start - t_end) * (
+            1.0 + math.cos(math.pi * progress))
+    raise ValueError(f"Invalid share_pred_temp_schedule: {schedule}")

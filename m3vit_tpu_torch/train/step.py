@@ -16,6 +16,12 @@ step on its shard of the global batch: its loss is its share of the
 global loss, the balance loss counts once over the world, the gradients
 are summed across ranks before the optimizer steps (``parallel.
 sync_grads``) and the metrics are the global batch's.
+
+For the token model the auxiliary loss the model returns already holds
+the blocks' sharing loss beside the cv loss, and it is weighted by
+cv_weight as a whole, as in the JAX package (step.py:75); the train step
+passes the epoch's Gumbel temperature (``share_temp``) to the model when
+given (step.py:48-62).
 """
 
 from __future__ import annotations
@@ -88,8 +94,10 @@ def make_train_step(model: torch.nn.Module, tasks: List[str],
                     cv_weight: float = 0.01,
                     analysis_metrics: bool = False,
                     accumulation_steps: int = 1):
-    """Returns train_step(batch, noise) -> metrics, with the count of calls
-    (micro-batches) in ``train_step.step``.  batch: {"image": [B, 3, H, W],
+    """Returns train_step(batch, noise, share_temp=None) -> metrics, with
+    the count of calls (micro-batches) in ``train_step.step``; share_temp
+    (the token model's Gumbel temperature of the epoch) goes to the model
+    when given.  batch: {"image": [B, 3, H, W],
     task: label [B, C, H, W]}; noise: the torch.Generator, on the model's
     device, that the gate noise is drawn from (unused when the VMoE gate's
     vmoe_noisy_std is 0).  Metrics are detached tensors of the call's
@@ -100,15 +108,17 @@ def make_train_step(model: torch.nn.Module, tasks: List[str],
     accum = max(int(accumulation_steps), 1)
 
     def train_step(batch: Dict[str, torch.Tensor],
-                   noise: Optional[torch.Generator] = None
+                   noise: Optional[torch.Generator] = None,
+                   share_temp: Optional[float] = None
                    ) -> Dict[str, torch.Tensor]:
         model.train()
         i = train_step.step
         if i % accum == 0:
             optimizer.zero_grad(set_to_none=True)
+        kw = {} if share_temp is None else {"share_temp": share_temp}
         with (collect_gate_stats(model) if analysis_metrics
               else contextlib.nullcontext()):
-            pred, cv, stats = model(batch["image"], noise=noise)
+            pred, cv, stats = model(batch["image"], noise=noise, **kw)
         losses = multi_task_loss(pred, batch, tasks, loss_fns, loss_weights)
         # the balance loss is the global batch's on every rank: it counts
         # once over the world

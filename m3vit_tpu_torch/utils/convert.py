@@ -11,10 +11,15 @@ the int8 expert banks of a quantized model (``experts_w1_q`` ->
 ``htoh4.weight_q`` transposed, kept int8; ``experts_w1_scale`` ->
 ``htoh4.weight_scale``, per out channel in either layout), the
 learned-noise gate's ``w_noise`` beside ``w_gate``, the dense ViT (its
-blocks have no MoE layer), a SingleTaskModel's one ``decoder`` and the TAM
+blocks have no MoE layer), a SingleTaskModel's one ``decoder``, the TAM
 modules ``tam_model{lvl}`` with their BatchNorm statistics (flax
 ConvTranspose kernels [kh, kw, in, out], spatially flipped, to torch
-[in, out, kh, kw]; reference models/models.py:11-134).
+[in, out, kh, kw]; reference models/models.py:11-134), the
+task-conditioned router's ``gate_task_represent``, and the token model's
+blocks (models/token_moe.py: ``share_pred``, the block-level routers,
+expert banks and shared FFN, the task-conditioned attention's
+parameters), named as m3vit_tpu/utils/torch_interop.py:
+reference_token_sd_to_params (:471-539) reads them.
 """
 
 from __future__ import annotations
@@ -53,7 +58,20 @@ def jax_variables_to_state_dict(variables: Dict, tasks: Iterable,
         put(prefix + ".weight", p["scale"])
         put(prefix + ".bias", p["bias"])
 
+    def gates(prefix, w):
+        v = np.asarray(w)
+        if multi_gate_tasks > 0:
+            for t in range(multi_gate_tasks):
+                put(prefix + f".{t}.w_gate", v[t])
+        else:
+            put(prefix + ".w_gate", v[0])
+
     bb = params.get("backbone", params)
+    if "gate_task_represent" in bb:
+        g = bb["gate_task_represent"]
+        dense("backbone.gate_task_represent.fc1", g["fc1"])
+        dense("backbone.gate_task_represent.fc2", g["fc2"])
+        norm("backbone.gate_task_represent.norm", g["norm"])
     put("backbone.pos_embed", bb["pos_embed"])
     put("backbone.cls_token", bb["cls_token"])
     conv("backbone.patch_embed.proj", bb["patch_embed"]["proj"])
@@ -64,8 +82,26 @@ def jax_variables_to_state_dict(variables: Dict, tasks: Iterable,
         pre = f"backbone.blocks.{i}."
         norm(pre + "norm1", blk["norm1"])
         norm(pre + "norm2", blk["norm2"])
-        dense(pre + "attn.qkv", blk["attn"]["qkv"])
-        dense(pre + "attn.proj", blk["attn"]["proj"])
+        attn = blk["attn"]
+        dense(pre + "attn.proj", attn["proj"])
+        if "qkv" in attn:
+            dense(pre + "attn.qkv", attn["qkv"])
+        else:   # the token model's task-conditioned attention
+            for k in ("branch_embed", "router_w", "router_b",
+                      "expert_pools", "q_bias", "k_bias", "v_bias"):
+                put(pre + "attn." + k, attn[k])
+        if "share_pred" in blk:
+            put(pre + "share_pred.w_gate", blk["share_pred"]["w_gate"])
+        if "experts_b1" in blk:   # a token model's MoE block
+            gates(pre + "gate", blk["w_gate"])
+            for n, bank in (("1", "htoh4"), ("2", "h4toh")):
+                put(pre + f"mlp.experts.{bank}.weight",
+                    np.asarray(blk[f"experts_w{n}"]).transpose(0, 2, 1))
+                put(pre + f"mlp.experts.{bank}.bias", blk[f"experts_b{n}"])
+                put(pre + f"shared_ffn.fc{n}.weight",
+                    np.asarray(blk[f"shared_ffn_fc{n}"]).T)
+                put(pre + f"shared_ffn.fc{n}.bias", blk[f"shared_ffn_b{n}"])
+            continue
         mlp = blk["mlp"]
         if "experts_b1" in mlp:  # MoE block
             for w in ("w_gate", "w_noise"):

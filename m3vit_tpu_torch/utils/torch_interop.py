@@ -17,6 +17,9 @@ utils/moe_utils.py).
   mode), optionally scaled by sqrt(E*G^2/K).
 - ``deit_to_backbone_params`` maps a DeiT state dict onto the backbone's
   parameters.
+- ``load_reference_token_state_dict`` loads a reference token-model state
+  dict (models/moe/token/*) with ``strict=True``: the counterpart of
+  ``reference_token_sd_to_params`` (interop :471-539).
 
 The port names its parameters like the reference model and keeps torch
 layouts, so a reference MTL state dict needs no renaming:
@@ -322,3 +325,22 @@ def load_into_model(model: torch.nn.Module, sd: Dict[str, np.ndarray],
             t.copy_(torch.as_tensor(np.asarray(v)).to(t.dtype))
     return [n for n, _ in model.named_parameters()
             if n.startswith(prefix) and n[len(prefix):] not in sd]
+
+
+def load_reference_token_state_dict(model: torch.nn.Module,
+                                    sd: Dict[str, np.ndarray]) -> None:
+    """Load a reference token multi-task state dict (``backbone.*``: the
+    token backbone's ``blocks.{i}.share_pred.w_gate``,
+    ``blocks.{i}.gate.{t}.w_gate``, ``blocks.{i}.mlp.experts.*``,
+    ``blocks.{i}.shared_ffn.*``, ``gate_task_represent.*``; and
+    ``decoders.{task}.*``) into the port's TokenMultiTaskModel with
+    ``strict=True`` (interop :471-539 maps the same names onto the JAX
+    tree).  Only the BatchNorms' ``num_batches_tracked`` counters, which a
+    state dict written by the JAX package lacks, keep the model's own
+    values; any other missing or unexpected name raises."""
+    own = model.state_dict()
+    tensors = {k: torch.as_tensor(np.asarray(v)) for k, v in sd.items()}
+    for k, v in own.items():
+        if k.endswith("num_batches_tracked") and k not in tensors:
+            tensors[k] = v
+    model.load_state_dict(tensors, strict=True)

@@ -47,6 +47,7 @@ from m3vit_tpu_torch.evaluation import edge_eval
 from m3vit_tpu_torch.evaluation import orchestrate
 from m3vit_tpu_torch.evaluation.outputs import get_output
 from m3vit_tpu_torch.models import build_model
+from m3vit_tpu_torch.models.token_moe import TokenMultiTaskModel
 from m3vit_tpu_torch.moe.dispatch import parse_capacity_factor
 from m3vit_tpu_torch.train.optim import build_optimizer
 from m3vit_tpu_torch.utils import checkpoint as ckpt
@@ -606,6 +607,74 @@ def test_cli_refuses_unported_flags(trees, tmp_path, flag, takes_value):
             "--device", "cpu", flag] + (["1"] if takes_value else [])
     with pytest.raises(NotImplementedError, match=flag):
         cli.main(argv)
+
+
+def _shrunk_exp(tmp_path, config, **over):
+    """A config of the repo shrunk to img 32, embed 64, depth 2, 4 heads,
+    E=4, K=2, f32 and its first two tasks' kind (semseg, sal)."""
+    p = yaml.safe_load((ROOT / config).read_text())
+    p["backbone_kwargs"].update(img_size=[32, 32], embed_dim=64, depth=2,
+                                num_heads=4)
+    p["head_kwargs"].update(img_size=[32, 32], embed_dim=64)
+    p["task_dictionary"] = {"include_semseg": True, "include_sal": True}
+    p["loss_kwargs"]["loss_weights"] = {"semseg": 1.0, "sal": 5.0}
+    p.update(train_scale=[32, 32], test_scale=[32, 32], **TINY, **over)
+    path = tmp_path / "shrunk.yml"
+    path.write_text(yaml.safe_dump(p))
+    return path
+
+
+TOKEN_CONFIG = "configs/pascal/token_moe/pup_moe_vit_small_multi_task_baseline.yml"
+ONEHOT_CONFIG = ("configs/pascal/vit_moe/"
+                 "pup_moe_vit_small_multi_task_baseline_onehot.yml")
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--share_gamma", "0.7"), ("--bootstrap_share_gamma", "0.2"),
+    ("--bootstrap_first_moe", "false"), ("--gate_task_specific_dim", "8"),
+    ("--task_one_hot", None)])
+def test_cli_takes_the_token_and_conditioning_flags(trees, tmp_path, flag,
+                                                    value):
+    """The five flags ported with the token variant and the
+    task-conditioned router are taken and act: the token model's
+    thresholds, the task feature's width (and with it the shared
+    router's input), and --task_one_hot trains one task a pass."""
+    config = ONEHOT_CONFIG if flag in ("--gate_task_specific_dim",
+                                       "--task_one_hot") else TOKEN_CONFIG
+    _, env = trees
+    out = cli.main(["--config_env", str(env), "--config_exp",
+                    str(_shrunk_exp(tmp_path, config)), "--device", "cpu",
+                    "--synthetic", "1", "--epochs", "0", flag]
+                   + ([value] if value else []))
+    model = out["state"]["model"]
+    bb = model.backbone
+    if flag == "--share_gamma":
+        assert bb.share_gamma == 0.7
+    elif flag == "--bootstrap_share_gamma":
+        assert bb.bootstrap_share_gamma == 0.2 and bb.bootstrap_first_moe
+    elif flag == "--bootstrap_first_moe":
+        assert bb.bootstrap_first_moe is False
+    elif flag == "--gate_task_specific_dim":
+        assert bb.gate_task_represent.fc2.out_features == 8
+        assert bb.blocks[1].mlp.gate.w_gate.shape[0] == 64 + 8
+    else:
+        assert model.multi_gate and bb.gate_task_represent is not None
+        assert out["state"]["train_step"].__name__ == "one_by_one_step"
+
+
+def test_cli_trains_the_token_model_on_its_temperature_schedule(
+        trees, tmp_path):
+    """The token config through the CLI on the PASCAL tree, two epochs:
+    the shareability temperature goes from the schedule's start to its
+    end (its warm-up cut with the epochs), the steps train the token
+    model, and the no-drop evaluation reads its MoE statistics."""
+    exp = _shrunk_exp(tmp_path, TOKEN_CONFIG,
+                      share_pred_temp_warmup_epochs=0)
+    out = _cli(trees, exp, "--run_name", "token", "--epochs", "2")
+    assert out["share_temps"] == {0: 1.5, 1: 0.5}
+    assert out["steps_run"] == 2 * (N_IMAGES // 2)
+    assert isinstance(out["state"]["model"], TokenMultiTaskModel)
+    assert set(out["best"]) >= {"semseg", "sal"}
 
 
 def test_cli_parallel_world_of_one_matches_one_process(trees, full_run):

@@ -11,6 +11,9 @@ port's own one-process path.
   mesh of the conftest's virtual CPU devices, at a capacity factor that
   drops slots: outputs and gradients in x, the gates and the expert banks
   to f32 atol 1e-5.
+* The token variant's stacked streams (``moe_ffn_streams``) over the same
+  mesh, masked ids (== E) among the routed ones: against JAX's
+  ``moe_ffn_streams`` on its (2, 2) mesh, the same tolerance.
 * One DP x EP train step (2 x 2) and one data-parallel step (4 x 1,
   ``--moe_data_distributed``) of a tiny two-task MoE model, with gate noise
   and no drops, against the port's one-process step on the global batch:
@@ -64,6 +67,27 @@ def _dispatch_spec():
     }
 
 
+def _streams_spec():
+    """T_s = 3 streams of S = WORLD * 64 tokens; a fifth of the tokens
+    masked (id E); capacity 16 a (rank, stream, expert) against ~13 routed
+    slots on average, so some drop."""
+    rng = np.random.RandomState(12)
+    Ts, S = 3, W.WORLD * 64
+    idx = rng.randint(0, E, (Ts, S, K))
+    idx[rng.rand(Ts, S) < 0.2] = E
+    return {
+        "x": rng.randn(Ts, S, D).astype(np.float32),
+        "idx": idx.astype(np.int64),
+        "gates": rng.rand(Ts, S, K).astype(np.float32),
+        "cot": rng.randn(Ts, S, D).astype(np.float32),
+        "w1": (rng.randn(E, H, D) * 0.1).astype(np.float32),
+        "b1": (rng.randn(E, H) * 0.1).astype(np.float32),
+        "w2": (rng.randn(E, D, H) * 0.1).astype(np.float32),
+        "b2": (rng.randn(E, D) * 0.1).astype(np.float32),
+        "cf": 0.5,
+    }
+
+
 def _global_batch():
     tasks = parse_task_dictionary("PASCALContext", W.TASKS)[0]
     b = synthetic_batch(torch.Generator().manual_seed(4), tasks, W.WORLD,
@@ -97,19 +121,42 @@ def _jax_dispatch(d):
     return out
 
 
+def _jax_streams(d):
+    """JAX's moe_ffn_streams on a (2, 2) mesh: output and gradients."""
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "expert"))
+    params = jdisp.MoEFfnParams(
+        w1=jnp.asarray(d["w1"].transpose(0, 2, 1)), b1=jnp.asarray(d["b1"]),
+        w2=jnp.asarray(d["w2"].transpose(0, 2, 1)), b2=jnp.asarray(d["b2"]))
+    idx = jnp.asarray(d["idx"].astype(np.int32))
+    cot = jnp.asarray(d["cot"])
+
+    def f(x, gates, params):
+        return jdisp.moe_ffn_streams(x, idx, gates, params, mesh=mesh,
+                                     expert_axis="expert",
+                                     capacity_factor=d["cf"],
+                                     compute_dtype=jnp.float32)
+
+    y, grads = jax.jit(lambda *a: (f(*a), jax.grad(
+        lambda *b: jnp.sum(f(*b) * cot), argnums=(0, 1, 2))(*a)),
+        compiler_options=FAST_COMPILE)(jnp.asarray(d["x"]),
+                                       jnp.asarray(d["gates"]), params)
+    return jax.tree.map(np.asarray, (y, grads))
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Every rank's results of one 4-rank Gloo spawn, and JAX's exchange
     (computed here while the ranks run)."""
     out = tmp_path_factory.mktemp("ranks")
-    spec = {"dispatch": _dispatch_spec(), "batch": _global_batch(),
-            "noise_seed": 7}
+    spec = {"dispatch": _dispatch_spec(), "streams": _streams_spec(),
+            "batch": _global_batch(), "noise_seed": 7}
     ctx = mp.start_processes(W.run, args=(free_port(), str(out), spec),
                              nprocs=W.WORLD, join=False,
                              start_method="spawn")
     deadline = time.monotonic() + SPAWN_TIMEOUT_S
     try:
         jref = _jax_dispatch(spec["dispatch"])
+        jref["streams"] = _jax_streams(spec["streams"])
     finally:
         while not ctx.join(timeout=1.0):
             if time.monotonic() > deadline:
@@ -160,6 +207,34 @@ def test_expert_parallel_dispatch_matches_jax(ranks, chunks):
         for name, a, b in (("y", got["y"], y), ("dx", got["dx"], dx),
                            ("dgates", got["dgates"], dgates)):
             np.testing.assert_allclose(a.numpy(), _rank_rows(b, r),
+                                       atol=1e-5, err_msg=f"rank {r} {name}")
+        e0 = (r % 2) * (E // 2)
+        for i, g in enumerate(got["dbanks"]):
+            np.testing.assert_allclose(g.numpy(), full[i][e0:e0 + E // 2],
+                                       atol=1e-5, err_msg=f"rank {r} bank {i}")
+
+
+def test_expert_parallel_streams_match_jax(ranks):
+    """moe_ffn_streams over the 2-rank expert groups: each rank's rows of
+    every stream, their gradients and its expert shard's (summed over the
+    data group) against JAX's moe_ffn_streams on the (2, 2) mesh, masked
+    ids among them and slots dropped."""
+    spec, res, _, jref = ranks
+    d = spec["streams"]
+    y, (dx, dgates, dparams) = jref["streams"]
+    n = d["x"].shape[1] // W.WORLD
+    cap = jdisp.compute_capacity(n, K, E, d["cf"])
+    counts = [np.bincount(d["idx"][t, r * n:(r + 1) * n].reshape(-1),
+                          minlength=E + 1)[:E]
+              for t in range(d["x"].shape[0]) for r in range(W.WORLD)]
+    assert (np.stack(counts) > cap).any(), "no slot dropped"
+    full = [dparams.w1.transpose(0, 2, 1), dparams.b1,
+            dparams.w2.transpose(0, 2, 1), dparams.b2]
+    for r in range(W.WORLD):
+        got = res[r]["streams"]
+        for name, a, b in (("y", got["y"], y), ("dx", got["dx"], dx),
+                           ("dgates", got["dgates"], dgates)):
+            np.testing.assert_allclose(a.numpy(), b[:, r * n:(r + 1) * n],
                                        atol=1e-5, err_msg=f"rank {r} {name}")
         e0 = (r % 2) * (E // 2)
         for i, g in enumerate(got["dbanks"]):

@@ -899,11 +899,10 @@ def test_factory_model_matches_jax(model_runs, case):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("backbone", "resnet18", "queue 1 items 7 and 8"),
-    ("head", "deeplab", "queue 1 items 7 and 8"),
+    ("backbone", "resnet18", "queue 1 item 8"),
+    ("head", "deeplab", "queue 1 item 8"),
     ("model", "mtan", "queue 1 item 8"),
-    ("stacked_tasks", True, "queue 1 item 7"),
-    ("gate_task_specific_dim", 64, "queue 1 item 7"),
+    ("stacked_tasks", True, "queue 1 item 7b"),
 ])
 def test_build_model_refuses_what_is_not_ported(key, value, match):
     """What the JAX factory builds and the port does not yet raises, naming
@@ -911,6 +910,25 @@ def test_build_model_refuses_what_is_not_ported(key, value, match):
     p = _config("vit_moe_small_multi_task.yml", **{key: value})
     with pytest.raises(NotImplementedError, match=match):
         build_model(p, device="cpu")
+
+
+def test_build_model_takes_gate_task_specific_dim():
+    """gate_task_specific_dim > 0 on one shared router builds the
+    task-conditioned model: one backbone pass a task, the router reading
+    the task feature too, and two tasks' passes on the same images route
+    differently."""
+    p = _config("vit_moe_small_multi_task.yml", multi_gate=False,
+                gate_task_specific_dim=8)
+    model, tasks = build_model(p, device="cpu")
+    assert model.multi_gate and model.backbone.gate_task_represent is not None
+    assert model.backbone.gate_task_represent.fc1.in_features == len(tasks)
+    assert model.backbone.blocks[1].mlp.gate.w_gate.shape[0] == \
+        p["backbone_kwargs"]["embed_dim"] + 8
+    bb = model.backbone
+    x = torch.randn(1, 3, *p["backbone_kwargs"]["img_size"])
+    with torch.no_grad():
+        a, b = (bb(x, t)[0] for t in (0, 1))
+    assert not torch.allclose(a, b)
 
 
 def test_chip_smoke_dense_config_is_the_yaml():

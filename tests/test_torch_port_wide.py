@@ -37,6 +37,7 @@ from m3vit_tpu_torch.config import create_config
 from m3vit_tpu_torch.data.synthetic import synthetic_batch
 from m3vit_tpu_torch.losses import schemes as tsch
 from m3vit_tpu_torch.models import build_model
+from m3vit_tpu_torch.models.factory import TOKEN_BACKBONES
 from m3vit_tpu_torch.ops.expert_ffn import (FUSED_DIMS, TWO_PASS_DIMS,
                                             ffn_route)
 from m3vit_tpu_torch.ops.flash_attention import HEAD_DIMS
@@ -175,7 +176,20 @@ def test_vit_base_moe_train_step_matches_jax(vit_base_run):
 # 4 heads (head dim 16, which K1/K2 do not take; ROADMAP queue 2).
 # cityscapes/vit_base_moe_ep has a route at d 768 on one card; what it
 # waits on is expert parallelism across cards (ROADMAP queue 1 item 6)
-QUEUED = {"configs/smoke/tiny_moe_synthetic.yml": "head dim 16"}
+QUEUED = {"configs/smoke/tiny_moe_synthetic.yml": "head dim 16",
+          "configs/smoke/tiny_token_synthetic.yml": "head dim 16"}
+# the configs the token slice brings onto the card (the token variant and
+# the task-conditioned router; tiny_token_synthetic is queued)
+TOKEN = {
+    "configs/pascal/token_moe/pup_moe_vit_small_multi_task_baseline.yml",
+    "configs/pascal/token_moe_multi_task.yml",
+    "configs/nyud/vit_moe_task_conditioned.yml",
+    "configs/pascal/vit_moe/pup_moe_vit_small_multi_task_baseline_onehot.yml",
+} | {f"configs/nyud/token_moe/pup_moe_vit_{w}_{t}.yml"
+     for w, ts in (("small", ("semseg", "depth", "normal",
+                              "multi_task_baseline")),
+                   ("base", ("semseg", "depth", "multi_task_baseline")))
+     for t in ts}
 # the configs this width slice brings onto the card
 WIDE = {
     "configs/pascal/vit_moe/pup_moe_vit_base_multi_task_baseline.yml",
@@ -202,7 +216,8 @@ def _vit_configs():
     for f in sorted((ROOT / "configs").rglob("*.yml")):
         p = yaml.safe_load(f.read_text())
         if isinstance(p, dict) and p.get("backbone") in (
-                "VisionTransformer", "VisionTransformer_moe"):
+                "VisionTransformer", "VisionTransformer_moe") \
+                + TOKEN_BACKBONES:
             out[str(f.relative_to(ROOT))] = p
     return out
 
@@ -212,7 +227,7 @@ def _widths(p):
     kw = p["backbone_kwargs"]
     d = int(kw["embed_dim"])
     hidden = {int(d * kw.get("mlp_ratio", 4.0))}
-    if p["backbone"] == "VisionTransformer_moe":
+    if p["backbone"] != "VisionTransformer":
         hidden.add(int(d * kw.get("moe_mlp_ratio", 1)))
     return d, d // int(kw["num_heads"]), hidden
 
@@ -221,9 +236,11 @@ def test_every_vit_config_has_a_kernel_route():
     """Every ViT config the port builds, bar the queued ones, has a head
     dim K1/K2 take and a route for each of its FFN widths (fused for d in
     FUSED_DIMS, two-pass for TWO_PASS_DIMS); the configs this slice adds
-    are among them, and d = 64 still has no route."""
+    are among them, and those of the token slice (11 of its 12; the
+    twelfth, d 64, is queued), and d = 64 still has no route."""
     configs = _vit_configs()
-    assert set(QUEUED) | WIDE <= set(configs)
+    assert set(QUEUED) | WIDE | TOKEN <= set(configs)
+    assert len(TOKEN) == 11
     routes = {}
     for path, p in configs.items():
         if path in QUEUED:

@@ -13,7 +13,8 @@ import torch.distributed as dist
 
 from m3vit_tpu_torch import parallel
 from m3vit_tpu_torch.models import build_flagship
-from m3vit_tpu_torch.moe.dispatch import MoEFfnParams, moe_ffn
+from m3vit_tpu_torch.moe.dispatch import MoEFfnParams, moe_ffn, \
+    moe_ffn_streams
 from m3vit_tpu_torch.tasks import parse_task_dictionary
 from m3vit_tpu_torch.train.optim import build_optimizer
 from m3vit_tpu_torch.train.step import make_eval_step, make_train_step
@@ -78,6 +79,34 @@ def _dispatch(spec, layout, rank):
     return out
 
 
+def _streams(spec, layout, rank):
+    """moe_ffn_streams over the expert group of 2 ranks: this rank's rows
+    of every stream ([T_s, S / WORLD, d]), the stream-major exchange; its
+    output and gradients in x, the gates and its expert shard (summed over
+    the data group)."""
+    d = spec["streams"]
+    E_local = d["w1"].shape[0] // layout.n_expert
+    lo = layout.expert_rank * E_local
+    n = d["x"].shape[1] // WORLD
+
+    def rows(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            a[:, rank * n:(rank + 1) * n]))
+
+    x, gates = (rows(d[k]).requires_grad_(True) for k in ("x", "gates"))
+    banks = [torch.from_numpy(d[k][lo:lo + E_local].copy())
+             .requires_grad_(True) for k in ("w1", "b1", "w2", "b2")]
+    y = moe_ffn_streams(x, rows(d["idx"]), gates, MoEFfnParams(*banks),
+                        capacity_factor=d["cf"], group=layout.expert_group,
+                        num_experts_global=d["w1"].shape[0])
+    (y * rows(d["cot"])).sum().backward()
+    bank_grads = [b.grad.clone() for b in banks]
+    for g in bank_grads:
+        dist.all_reduce(g, group=layout.data_group)
+    return {"y": y.detach(), "dx": x.grad, "dgates": gates.grad,
+            "dbanks": bank_grads}
+
+
 def _step(spec, layout, rank, ckpt_dir=None):
     """One train step of the tiny model on this rank's shard of the
     global batch, then an eval step; the losses, the one-card state after
@@ -106,6 +135,7 @@ def run(rank, port, out_dir, spec):
         ep = parallel.make_layout(2, 2)
         dp = parallel.make_layout(4, 1)
         res["dispatch"] = _dispatch(spec, ep, rank)
+        res["streams"] = _streams(spec, ep, rank)
         ckpt = os.path.join(out_dir, "ckpt")
         for name, lay in (("dpxep", ep), ("dp", dp)):
             parallel.set_layout(lay)
