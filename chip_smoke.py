@@ -65,6 +65,14 @@ random weights) along each of its paths, the kernels' launch counts set to
   task-conditioned config's step, joint and with shared_prefix; and the
   NYUD ViT-base token config's step and a served image, each against its
   plain path.
+- cnn: the 39 CNN configs (ResNet-18/50, HRNet-W18 and MobileNetV3 with
+  the DeepLab or HRNet heads; Cross-Stitch, NDDR-CNN, MTAN, PAD-Net,
+  MTI-Net) built from their YAMLs on the card, f32 with TF32 off: a train
+  step and an eval forward each, four of them timed (one also with TF32
+  on); one config of each model kind stepped on the card against the CPU
+  on the same weights, batch and masks; MTI-Net on a fabricated NYUD tree
+  through the CLI (stop, resume, eval) with its deep-supervision loss;
+  K1-K7 launched 0 times on all of it.
 Each phase prints one JSON line; the line before the last is nvidia-smi's
 card name and power limit, and the last line is {"ok": true, "device":
 {...}}.  Any failed check exits non-zero before that line; without CUDA the
@@ -74,6 +82,7 @@ script exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import gc
 import itertools
@@ -188,7 +197,7 @@ GRAD_REL_TOL, GRAD_ABS_FRAC = 1e-2, 2e-2
 # (limits about 10x and 2x the readings on an H100: 8.9e-6 in two runs, and
 # at most 0.0094 per group)
 TRAIN_LOSS_REL_TOL, BACKBONE_GRAD_REL_TOL = 1e-4, 2e-2
-TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 8, 10, 10
+TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 8, 10, 5
 # gradient accumulation: the kernel path's gradient after its two
 # micro-batches against the mean of the two micro-batches' gradients taken
 # one by one on the same path, per parameter group, to
@@ -198,8 +207,8 @@ TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 8, 10, 10
 # backbone: 1.1-1.2% on an H100), which the run measures and reports; a
 # lost micro-batch or a missing 1/k is off by 50% or more
 ADAM_STEPS, ADAM_LR = 5, 5e-5   # optimizer steps (two micro-batches each)
-DENSE_REQUESTS = 50      # timed bucket-8 requests of the dense ViT
-LN_MLP_REQUESTS = 40     # timed bucket-8 requests of the ln_mlp serving path
+DENSE_REQUESTS = 25      # timed bucket-8 requests of the dense ViT
+LN_MLP_REQUESTS = 20     # timed bucket-8 requests of the ln_mlp serving path
 LOSS_WEIGHTS = {"semseg": 1.0, "human_parts": 2.0, "sal": 5.0, "edge": 50.0,
                 "normals": 10.0}
 # bench.py:316-322: SGD, lr 0.002, momentum 0.9, wd 1e-4, poly over 100
@@ -236,8 +245,8 @@ DENSE_CONFIG = {
 # (bf16 dense tensor-core FLOP/s, HBM bytes/s) by device name, from NVIDIA's
 # data sheet (H100 SXM5, at its 700 W limit)
 PEAKS = {"NVIDIA H100 80GB HBM3": (989e12, 3.35e12)}
-REQUESTS = 40            # timed requests per serving cell
-EVAL_REPS = 10
+REQUESTS = 20            # timed requests per serving cell
+EVAL_REPS = 5
 
 failures = []
 
@@ -4122,7 +4131,419 @@ def parallel_phase(dev, root: str):
 # their plain versions, the flagship's paths, the CLI and the training
 # recipe on its tree, the wider model families, data and expert
 # parallelism, and the token variant with the task-conditioned router
-PHASES = ("kernels", "flagship", "cli", "wide", "parallel", "token")
+CNN_BACKBONES = ("resnet18", "resnet50", "hrnet_w18", "mobilenetv3")
+#: configs whose train step is timed over CNN_STEPS steps (the first also
+#: with TF32 on)
+CNN_TIMED = ("pascal/resnet18/multi_task_baseline.yml",
+             "nyud/resnet50/cross_stitch.yml", "pascal/hrnet18/mti_net.yml",
+             "cityscapes/semseg.yml")
+CNN_STEPS = 5
+#: one config of each model kind, stepped on the card against the CPU
+CNN_KINDS = {
+    "baseline_resnet18_deeplab": "pascal/resnet18/multi_task_baseline.yml",
+    "baseline_hrnet": "nyud/hrnet18/multi_task_baseline.yml",
+    "baseline_mobilenetv3_small":
+        "pascal/resnet18/mobilenetv3_multi_task_baseline.yml",
+    "cross_stitch": "nyud/resnet50/cross_stitch.yml",
+    "nddr_cnn": "nyud/resnet50/nddr_cnn.yml",
+    "mtan": "nyud/resnet50/mtan.yml",
+    "pad_net": "nyud/resnet50/pad_net.yml",
+    "mti_net": "nyud/hrnet18/mti_net.yml",
+}
+CNN_VS_CPU_HW, CNN_VS_CPU_BATCH = (128, 128), 2
+CNN_LOSS_REL_TOL = 1e-5     # card vs CPU, every loss term
+#: card vs CPU, |dg| / |g| over a parameter group: two f32 summation
+#: orders of one step; the CPU's f32 gradients alone are up to 2.7e-3 from
+#: an f64 run's on these configs (NDDR-CNN's two ResNet-50s, B=2, 128^2:
+#: scripts/cnn_grad_precision.py)
+CNN_GRAD_REL_TOL = 1e-2
+CNN_CLI_CONFIG = "configs/nyud/hrnet18/mti_net.yml"
+CNN_CLI_IMAGES, CNN_CLI_HW = 32, (480, 640)   # 4 steps an epoch at B=8
+CNN_CLI_STOP = 2
+CNN_PHASE_LIMIT_S = 150.0
+
+
+def cnn_configs():
+    """Every config whose backbone is a CNN, relative to configs/."""
+    import yaml
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs")
+    out = []
+    for dirpath, _, files in os.walk(base):
+        for f in files:
+            if f.endswith(".yml"):
+                path = os.path.join(dirpath, f)
+                with open(path) as fh:
+                    p = yaml.safe_load(fh) or {}
+                if p.get("backbone") in CNN_BACKBONES:
+                    out.append(os.path.relpath(path, base))
+    return sorted(out)
+
+
+@contextlib.contextmanager
+def tf32(on: bool):
+    """cuDNN convolutions and matmuls with TF32 on or off (f32 configs run
+    with it off, as the CLI sets it), restored after."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def cnn_step_setup(p, model, names):
+    """(the CLI's train step for config p: its optimizer, its loss
+    scheme)."""
+    from m3vit_tpu_torch.losses.schemes import loss_scheme_of
+
+    loss_fns = build_loss_fns(p)
+    weights = dict((p.get("loss_kwargs") or {}).get(
+        "loss_weights", {t: 1.0 for t in names}))
+    opt, schedule = build_optimizer(model.parameters(), p,
+                                    steps_per_epoch=100)
+    return make_train_step(model, names, loss_fns, weights, opt, schedule,
+                           loss_scheme=loss_scheme_of(p, names, loss_fns,
+                                                      weights))
+
+
+def cnn_configs_phase(dev, env: str):
+    """Each CNN config built from its YAML on the card (create_config:
+    its train_scale, trBatch, optimizer; f32, TF32 off): one train step on
+    a synthetic batch (the config's tasks and auxiliary tasks) and one
+    eval forward at valBatch, the loss finite, every task's output
+    [valBatch, C_t, H, W] and finite, K1-K7 launched 0 times; the first
+    step's ms (cuDNN's first calls included) and the peak memory.  For
+    CNN_TIMED also CNN_STEPS timed steps (the first config's also with
+    TF32 on)."""
+    rows, launches = {}, {}
+    for cfg in cnn_configs():
+        p = create_config(env, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "configs", cfg), {})
+        names = list(p["TASK_NAMES"])
+        t0 = time.perf_counter()
+        model, tasks = build_model(p, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        step = cnn_step_setup(p, model, names)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        batch = synthetic_batch(gen, p["ALL_TASKS"], int(p["trBatch"]),
+                                tuple(p["train_scale"]))
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        with tf32(False):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            metrics = step(batch, gen)
+            b.record()
+            torch.cuda.synchronize()
+            first_ms = a.elapsed_time(b)
+            loss = float(metrics["loss_total"])
+            vb = int(p["valBatch"])
+            img = torch.randn((vb, 3) + tuple(p["test_scale"]),
+                              generator=gen, device=dev)
+            model.eval()
+            with torch.no_grad():
+                pred = model(img)[0]
+            torch.cuda.synchronize()
+            run = dict(_build.launches)
+            timed = {}
+            if cfg in CNN_TIMED:
+                for on in ((False, True) if cfg == CNN_TIMED[0]
+                           else (False,)):
+                    with tf32(on):
+                        step(batch, gen)   # one step at the setting first
+                        a.record()
+                        for _ in range(CNN_STEPS):
+                            step(batch, gen)
+                        b.record()
+                        torch.cuda.synchronize()
+                    timed["tf32_on" if on else "tf32_off"] = \
+                        a.elapsed_time(b) / CNN_STEPS
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        shapes_ok = all(
+            tuple(pred[t.name].shape) == (vb, t.num_output) + tuple(
+                p["test_scale"]) and bool(torch.isfinite(pred[t.name]).all())
+            for t in tasks) and set(pred) == set(names)
+        check(np.isfinite(loss) and shapes_ok,
+              f"cnn config {cfg}: loss {loss}, outputs "
+              f"{ {k: tuple(v.shape) for k, v in pred.items()} }")
+        check(not any(run.values()), f"cnn config {cfg}: kernels launched "
+              f"{ {k: v for k, v in run.items() if v} }")
+        for k, v in run.items():
+            launches[k] = launches.get(k, 0) + v
+        rows[cfg] = {"model": type(model).__name__,
+                     "params_m": sum(x.numel() for x in model.parameters())
+                     / 1e6, "batch": int(p["trBatch"]),
+                     "hw": list(p["train_scale"]), "build_s": build_s,
+                     "first_step_ms": first_ms, "loss": loss,
+                     "peak_memory_gb": peak, **(
+                         {"step_ms": timed} if timed else {})}
+        del model, step, batch, pred, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(len(rows) == 39, f"{len(rows)} CNN configs, expected 39")
+    emit({"phase": "cnn_configs", "configs": rows,
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches
+
+
+def cnn_group(name: str) -> str:
+    """A CNN model's parameter group: its top module's leading word
+    (backbone, decoders, heads, stitch, nddr, attention, refine, initial,
+    distillation, head, scale, fpm, dist)."""
+    return re.match(r"[a-z]+", name).group()
+
+
+def cnn_vs_cpu_phase(dev, env: str):
+    """One config of each model kind (CNN_KINDS) at full channel widths:
+    the same weights and batch (CNN_VS_CPU_BATCH images of CNN_VS_CPU_HW),
+    one train forward and backward of the config's loss scheme on the CPU
+    and on the card, f32 with TF32 off; the card replays the CPU's dropout
+    and ReLU masks (a BatchNorm output within rounding of 0 would flip
+    between the two).  Every loss term within CNN_LOSS_REL_TOL, the
+    gradients by group within CNN_GRAD_REL_TOL (|dg| / |g|), the running
+    statistics after the step within 1e-4; K1-K7 launched 0 times."""
+    from m3vit_tpu_torch.losses.schemes import loss_scheme_of
+    from m3vit_tpu_torch.ops import dropout as dropout_ops
+
+    out = {}
+    for kind, cfg in CNN_KINDS.items():
+        p = create_config(env, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "configs", cfg), {})
+        names = list(p["TASK_NAMES"])
+        cpu_model, _ = build_model(p, device="cpu")
+        model = copy.deepcopy(cpu_model).to(dev)
+        loss_fns = build_loss_fns(p)
+        weights = dict(p["loss_kwargs"]["loss_weights"])
+        scheme = loss_scheme_of(p, names, loss_fns, weights)
+        batch = synthetic_batch(torch.Generator().manual_seed(1),
+                                p["ALL_TASKS"], CNN_VS_CPU_BATCH,
+                                CNN_VS_CPU_HW)
+        relus, drops = [], []
+        orig_relu, orig_mask = F.relu, dropout_ops._mask
+
+        def record_relu(v):
+            relus.append(v > 0)
+            return torch.where(relus[-1], v, torch.zeros((), dtype=v.dtype))
+
+        def record_mask(shape, keep, rng, device):
+            drops.append(orig_mask(shape, keep, rng, device))
+            return drops[-1]
+
+        def run(m, b, gen):
+            m.train()
+            pred, _, _ = m(b["image"], noise=gen)
+            losses = scheme(pred, b)
+            losses["total"].backward()
+            return {k: float(v.detach()) for k, v in losses.items()}
+
+        try:
+            F.relu, dropout_ops._mask = record_relu, record_mask
+            ref = run(cpu_model, batch, torch.Generator().manual_seed(2))
+            replay = [m.to(dev) for m in relus]
+            dmasks = [m.to(dev) for m in drops]
+
+            def replay_relu(v):
+                keep = replay.pop(0)
+                return torch.where(keep, v, torch.zeros((), dtype=v.dtype,
+                                                        device=v.device))
+
+            F.relu = replay_relu
+            dropout_ops._mask = lambda shape, keep, rng, device: \
+                dmasks.pop(0)
+            _build.reset_launches()
+            with tf32(False):
+                got = run(model, {k: v.to(dev) for k, v in batch.items()},
+                          torch.Generator(device=dev).manual_seed(2))
+            torch.cuda.synchronize()
+        finally:
+            F.relu, dropout_ops._mask = orig_relu, orig_mask
+        check(not replay and not dmasks,
+              f"cnn vs cpu {kind}: the card ran {len(replay)} ReLUs and "
+              f"{len(dmasks)} dropouts fewer than the CPU")
+        loss_err = {k: abs(got[k] - v) / max(abs(v), 1e-12)
+                    for k, v in ref.items()}
+        cpu_g = {n: q.grad for n, q in cpu_model.named_parameters()}
+        groups = {}
+        for n, q in model.named_parameters():
+            d, r = groups.setdefault(cnn_group(n), [0.0, 0.0])
+            groups[cnn_group(n)] = [
+                d + float((q.grad.cpu() - cpu_g[n]).square().sum()),
+                r + float(cpu_g[n].square().sum())]
+        grad_err = {g: (d / max(r, 1e-30)) ** 0.5
+                    for g, (d, r) in groups.items()}
+        cpu_sd = cpu_model.state_dict()
+        stats_err = max(
+            float((v.cpu() - cpu_sd[k]).abs().max()
+                  / max(float(cpu_sd[k].abs().max()), 1.0))
+            for k, v in model.state_dict().items() if "running" in k)
+        check(max(loss_err.values()) < CNN_LOSS_REL_TOL,
+              f"cnn vs cpu {kind}: loss rel errors {loss_err}")
+        check(max(grad_err.values()) < CNN_GRAD_REL_TOL,
+              f"cnn vs cpu {kind}: grad rel errors by group {grad_err}")
+        check(stats_err < 1e-4, f"cnn vs cpu {kind}: running statistics "
+              f"off by {stats_err}")
+        check(not any(_build.launches.values()),
+              f"cnn vs cpu {kind}: kernels launched {dict(_build.launches)}")
+        out[kind] = {"config": cfg, "loss": ref["total"],
+                     "loss_rel_err_max": max(loss_err.values()),
+                     "grad_rel_err": grad_err, "running_stats_err": stats_err}
+        del model, cpu_model
+        torch.cuda.empty_cache()
+    emit({"phase": "cnn_vs_cpu", "batch": CNN_VS_CPU_BATCH,
+          "hw": list(CNN_VS_CPU_HW), "kinds": out})
+
+
+def cnn_cli_phase(dev, root: str):
+    """CNN_CLI_CONFIG (MTI-Net on HRNet-W18, NYUD semseg + depth, its
+    deep-supervision loss) through the CLI on a NYUD tree of
+    CNN_CLI_IMAGES images of CNN_CLI_HW fabricated by
+    scripts/fabricate_dataset.py, one epoch: a run stopped after
+    CNN_CLI_STOP steps, --resume to the end with its evaluation, and
+    --eval (run 2's results).  Checks that the scale_{0..3}_{task} losses
+    are logged and that no hand-written kernel was launched; the CLI's ms
+    per step beside its train step on a synthetic batch."""
+    import glob
+
+    import yaml
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    db = os.path.join(root, "NYUD_MT")
+    t0 = time.perf_counter()
+    subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from fabricate_dataset import fabricate_nyud; "
+         "fabricate_nyud(sys.argv[2], int(sys.argv[3]), "
+         "(int(sys.argv[4]), int(sys.argv[5])))",
+         os.path.join(here, "scripts"), db, str(CNN_CLI_IMAGES),
+         *map(str, CNN_CLI_HW)], check=True, timeout=300)
+    fabricate_s = time.perf_counter() - t0
+    env = os.path.join(root, "env.yml")
+    with open(env, "w") as f:
+        yaml.safe_dump({"root_dir": os.path.join(root, "runs"),
+                        "dataset_roots": {"NYUD_MT": db}}, f)
+    exp = load_config(CNN_CLI_CONFIG)
+    exp["epochs"] = 1
+    cfg = os.path.join(root, "cnn_cli.yml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(exp, f)
+    base = ["--config_env", env, "--config_exp", cfg, "--run_name", "cnn",
+            "--log_interval", "1"]
+    runs, launches = {}, {}
+    log_path = os.path.join(root, "cnn_cli.log")
+    try:
+        with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+            for name, extra in (("stop", ["--stop_after_steps",
+                                          str(CNN_CLI_STOP)]),
+                                ("resume", ["--resume"]),
+                                ("eval", ["--eval"])):
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                runs[name] = cli_main(base + extra)
+                torch.cuda.synchronize()
+                runs[name]["seconds"] = time.perf_counter() - t0
+                launches[name] = {k: v for k, v in _build.launches.items()
+                                  if v}
+                if name == "resume":
+                    # the run's own train step on a synthetic batch
+                    st = runs[name]["state"]
+                    p = create_config(env, cfg, {})
+                    gen = torch.Generator(device=dev).manual_seed(0)
+                    batch = synthetic_batch(gen, p["ALL_TASKS"],
+                                            int(p["trBatch"]),
+                                            tuple(p["train_scale"]))
+                    with tf32(False):
+                        st["train_step"](batch, gen)
+                        a, b = (torch.cuda.Event(enable_timing=True)
+                                for _ in range(2))
+                        a.record()
+                        for _ in range(3):
+                            st["train_step"](batch, gen)
+                        b.record()
+                        torch.cuda.synchronize()
+                    synthetic_ms = a.elapsed_time(b) / 3
+                    del batch
+                runs[name].pop("state", None)
+    except BaseException:
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                print(f.read()[-6000:], file=sys.stderr)
+        raise
+    spe = CNN_CLI_IMAGES // int(exp["trBatch"])
+    stop, res, ev = runs["stop"], runs["resume"], runs["eval"]
+    check(stop.get("stopped_at_step") == CNN_CLI_STOP
+          and res["steps_run"] == spe - CNN_CLI_STOP
+          and res.get("best") is not None,
+          f"cnn cli: stopped at {stop.get('stopped_at_step')}, resume ran "
+          f"{res['steps_run']} steps, best {res.get('best')}")
+    best = res.get("best") or {}
+    diffs = [abs(a - b) / max(abs(b), 1e-12) for (pa, a), (pb, b) in zip(
+        _leaves({t: ev.get(t) for t in ("semseg", "depth")}),
+        _leaves({t: best.get(t) for t in ("semseg", "depth")}))]
+    check(diffs and max(diffs) < CLI_EVAL_REL_TOL,
+          f"cnn cli: --eval results off run 2's by {max(diffs or [0])}")
+    check(not any(launches.values()),
+          f"cnn cli: kernels launched {launches}")
+    logged = set()
+    for path in glob.glob(os.path.join(root, "runs", "**", "metrics.jsonl"),
+                          recursive=True):
+        with open(path) as f:
+            for line in f:
+                logged.update(k for k in json.loads(line)
+                              if k.startswith("train/loss_scale_"))
+    want = {f"train/loss_scale_{i}_{t}" for i in range(4)
+            for t in ("semseg", "depth")}
+    check(want <= logged, f"cnn cli: deep-supervision losses logged "
+          f"{sorted(logged)}, expected {sorted(want)}")
+    gaps = []
+    for r in (stop, res):
+        t = dict(r["step_times"])
+        gaps += [(t[s] - t[s - 1]) * 1e3 for s in t if s - 1 in t]
+    emit({"phase": "cnn_cli", "config": CNN_CLI_CONFIG,
+          "images": CNN_CLI_IMAGES, "hw": list(CNN_CLI_HW),
+          "fabricate_s": fabricate_s,
+          "runs": {k: _summary(r) for k, r in runs.items()},
+          "launches": launches, "deep_supervision_logged": sorted(
+              k for k in logged if k in want),
+          "cli_ms_per_step_median": float(np.median(gaps)) if gaps else None,
+          "cli_step_gaps_ms": gaps, "synthetic_step_ms": synthetic_ms})
+    return launches
+
+
+def cnn_phase(dev, root: str):
+    """The CNN slice's paths (cnn_configs_phase, cnn_vs_cpu_phase,
+    cnn_cli_phase) within CNN_PHASE_LIMIT_S; the launches of K1-K7 on
+    them, which must all be 0."""
+    import yaml
+
+    t0 = time.perf_counter()
+    env = os.path.join(root, "env_configs.yml")
+    with open(env, "w") as f:
+        yaml.safe_dump({"root_dir": os.path.join(root, "config_runs")}, f)
+    seconds = {}
+    paths = {"cnn_configs": cnn_configs_phase(dev, env)}
+    seconds["configs"] = time.perf_counter() - t0
+    cnn_vs_cpu_phase(dev, env)
+    seconds["vs_cpu"] = time.perf_counter() - t0 - sum(seconds.values())
+    torch.cuda.empty_cache()
+    cli_launches = cnn_cli_phase(dev, root)
+    seconds["cli"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths["cnn_cli"] = {k: sum(r.get(k, 0) for r in cli_launches.values())
+                        for k in _build.kernel_names()}
+    phase_s = time.perf_counter() - t0
+    check(phase_s < CNN_PHASE_LIMIT_S,
+          f"cnn phases took {phase_s:.1f} s (limit {CNN_PHASE_LIMIT_S})")
+    emit({"phase": "cnn_total", "seconds": phase_s, "parts_s": seconds})
+    return paths
+
+
+PHASES = ("kernels", "flagship", "cli", "wide", "parallel", "token", "cnn")
 
 
 def main(argv=None) -> int:
@@ -4238,6 +4659,12 @@ def main(argv=None) -> int:
             os.makedirs(token_root)
             paths.update(token_phase(dev, token_root))
             lap("token")
+        if "cnn" in only:
+            cnn_root = os.path.join(root, "cnn")
+            os.makedirs(cnn_root)
+            paths.update(cnn_phase(dev, cnn_root))
+            torch.cuda.empty_cache()
+            lap("cnn")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "phase_seconds", **seconds})

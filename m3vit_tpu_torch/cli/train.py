@@ -78,8 +78,8 @@ from m3vit_tpu_torch.evaluation.orchestrate import (
     save_model_predictions,
     validate_results,
 )
-from m3vit_tpu_torch.losses.schemes import build_loss_fns
-from m3vit_tpu_torch.models.factory import build_model
+from m3vit_tpu_torch.losses.schemes import build_loss_fns, loss_scheme_of
+from m3vit_tpu_torch.models.factory import build_model, is_cnn_model
 from m3vit_tpu_torch.models.token_moe import TokenMultiTaskModel
 from m3vit_tpu_torch.models.vit_moe import VisionTransformerMoE
 from m3vit_tpu_torch.moe.dispatch import parse_capacity_factor
@@ -112,23 +112,25 @@ from m3vit_tpu_torch.utils.torch_interop import (
     validate_reference_moe_checkpoint,
 )
 
-_ITEM7 = ("the research knobs, stacked tasks and the scan strategies, "
-          "ROADMAP.md queue 1 item 7b")
+_ITEM7B = ("the research knobs, stacked tasks and the scan strategies, "
+           "ROADMAP.md queue 1 item 7b")
+_ITEM8B = "the CNN models under torch.distributed, ROADMAP.md queue 1 item 8b"
 _ITEM10 = "sequence parallelism, ROADMAP.md queue 1 item 10"
 
 #: flags of the JAX CLI whose feature the port lacks: (flag, takes a
 #: value, why); any use raises NotImplementedError
 UNPORTED = (
     ("--n_seq", True, _ITEM10),
-    ("--stacked_tasks", False, _ITEM7), ("--scan_tasks", False, _ITEM7),
-    ("--scan_blocks", False, _ITEM7), ("--no_scan_tasks_remat", False, _ITEM7),
-    ("--expert_prune", False, _ITEM7),
-    ("--regu_experts_fromtask", False, _ITEM7),
-    ("--num_experts_pertask", True, _ITEM7), ("--regu_sem", False, _ITEM7),
-    ("--sem_force", False, _ITEM7), ("--regu_subimage", False, _ITEM7),
-    ("--semregu_loss_weight", True, _ITEM7),
-    ("--subimageregu_weight", True, _ITEM7),
-    ("--warmup_epochs", True, _ITEM7), ("--gate_input_ahead", False, _ITEM7),
+    ("--stacked_tasks", False, _ITEM7B), ("--scan_tasks", False, _ITEM7B),
+    ("--scan_blocks", False, _ITEM7B),
+    ("--no_scan_tasks_remat", False, _ITEM7B),
+    ("--expert_prune", False, _ITEM7B),
+    ("--regu_experts_fromtask", False, _ITEM7B),
+    ("--num_experts_pertask", True, _ITEM7B), ("--regu_sem", False, _ITEM7B),
+    ("--sem_force", False, _ITEM7B), ("--regu_subimage", False, _ITEM7B),
+    ("--semregu_loss_weight", True, _ITEM7B),
+    ("--subimageregu_weight", True, _ITEM7B),
+    ("--warmup_epochs", True, _ITEM7B), ("--gate_input_ahead", False, _ITEM7B),
     ("--platform", True, "a JAX option; the port takes --device"),
 )
 
@@ -577,6 +579,8 @@ def run(args) -> Dict:
     loaders = []
     prev_sigterm = None
     preempted = {"flag": False}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
 
     def _on_sigterm(signum, frame):
         # preemption notice: finish the in-flight step, checkpoint, exit
@@ -595,6 +599,8 @@ def run(args) -> Dict:
             else _NullLogger()
         return _run(args, p, device, logger, loaders, preempted, layout)
     finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
         _leave_group(layout, joined)
         for ld in loaders:
             ld.close()
@@ -627,11 +633,27 @@ def _run(args, p, device, logger, loaders, preempted, layout=None) -> Dict:
               f"{dist.get_backend()}, a2a_chunks {args.a2a_chunks or 1}")
     print(f"tasks: {p['TASK_NAMES']}")
     model, _ = build_model(p, device=device, seed=args.seed)
+    if layout is not None and is_cnn_model(model):
+        raise NotImplementedError(
+            f"{p.get('model', 'baseline')} on {p['backbone']} is not ported "
+            f"to m3vit_tpu_torch ({_ITEM8B})")
+    if p.get("compute_dtype") == "float32":
+        # the config asks for f32: no TF32 (10-bit mantissa) in the run's
+        # cuDNN convolutions and matmuls, torch's default for cuDNN (``run``
+        # restores the flags)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     tasks = list(p["TASK_NAMES"])
     loss_fns = build_loss_fns(p)
     loss_weights = dict(
         (p.get("loss_kwargs") or {}).get("loss_weights", {t: 1.0 for t in tasks})
     )
+    scheme = (p.get("loss_kwargs") or {}).get("loss_scheme", "baseline")
+    print(f"loss scheme: {scheme}")
+    if args.one_by_one and scheme != "baseline":
+        raise NotImplementedError(
+            f"--one_by_one scores each task's output alone; loss_scheme "
+            f"{scheme!r} needs the joint step")
 
     batch_size = int(p.get("trBatch", 2))
     val_batch = int(p.get("valBatch", p.get("trBatch", 2)))
@@ -639,8 +661,10 @@ def _run(args, p, device, logger, loaders, preempted, layout=None) -> Dict:
     # (m3vit_tpu/cli/train.py:466-468); the val loader yields whole global
     # batches on every rank, which sharded_eval_step pads and slices
     if args.synthetic:
-        train_loader = SyntheticLoader(p["TASKS"], args.synthetic, batch_size,
-                                       p["train_scale"], device, rank, world)
+        # the auxiliary tasks' labels too, for a deep-supervision scheme
+        train_loader = SyntheticLoader(p["ALL_TASKS"], args.synthetic,
+                                       batch_size, p["train_scale"], device,
+                                       rank, world)
         val_loader = SyntheticLoader(p["TASKS"], max(args.synthetic // 2, 1),
                                      val_batch * world, p["test_scale"],
                                      device)
@@ -695,7 +719,8 @@ def _run(args, p, device, logger, loaders, preempted, layout=None) -> Dict:
     else:
         train_step = make_train_step(
             model, tasks, loss_fns, loss_weights, optimizer, lr_schedule,
-            cv_weight=cv_w, analysis_metrics=True, accumulation_steps=accum)
+            cv_weight=cv_w, analysis_metrics=True, accumulation_steps=accum,
+            loss_scheme=loss_scheme_of(p, tasks, loss_fns, loss_weights))
     # stats-carrying eval step: evaluate_online enforces the reference's
     # no-drop semantics on dropped_slot_fraction (see _DropGuard)
     eval_step = make_eval_step(model, tasks, with_stats=True)

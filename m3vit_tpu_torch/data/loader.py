@@ -31,7 +31,10 @@ from torch.utils.data import DataLoader, Dataset, Sampler
 def get_dataset(p, split: str, transform, overfit: bool = False):
     """reference: utils/common_config.py:635-716 (get_train/val_dataset)."""
     db = p["train_db_name"] if split == "train" else p["val_db_name"]
-    names = set(p["TASK_NAMES"])
+    # the auxiliary tasks' labels too (a deep-supervision loss scores
+    # them; reference common_config.py reads p.ALL_TASKS)
+    names = {t.name for t in p["ALL_TASKS"]} if "ALL_TASKS" in p \
+        else set(p["TASK_NAMES"])
     roots = p.get("db_paths", {})
     if db == "PASCALContext":
         from m3vit_tpu_torch.data.pascal_context import PASCALContext

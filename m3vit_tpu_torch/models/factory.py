@@ -6,7 +6,10 @@ the plain dict a reference-schema YAML holds and builds the ``baseline``
 model on the dense or the MoE ViT with PUP heads, single- or multi-task,
 the task-conditioned model (gate_task_specific_dim > 0, one shared
 router), or the token persistent-sharing model (its backbone names,
-factory.py:276-318).
+factory.py:276-318); on the CNN backbones (ResNet-18/50, HRNet-W18,
+MobileNetV3; factory.py:124-142) with the DeepLab or HRNet heads
+(:165-171), the baseline and the MTL methods Cross-Stitch, NDDR-CNN, MTAN,
+PAD-Net and MTI-Net (_build_mtl_method, :176-238).
 ``build_flagship`` is ViT-small-MoE, multi-gate, 5 PASCAL tasks (defaults
 of __graft_entry__.py:build_flagship :32-81: train capacity factor 1.25,
 eval 2.0, gate noise std 1.0).
@@ -18,7 +21,17 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from m3vit_tpu_torch.models.cnn_heads import DeepLabHead, HighResolutionHead
 from m3vit_tpu_torch.models.heads import VisionTransformerUpHead
+from m3vit_tpu_torch.models.hrnet import HighResolutionNet, hrnet_w18
+from m3vit_tpu_torch.models.mobilenetv3 import MobileNetV3
+from m3vit_tpu_torch.models.mtl_methods import (
+    MTAN,
+    MTINet,
+    NDDRCNN,
+    CrossStitchNetwork,
+    PADNet,
+)
 from m3vit_tpu_torch.models.multitask import (
     MultiTaskModel,
     SingleTaskModel,
@@ -27,6 +40,7 @@ from m3vit_tpu_torch.models.token_moe import (
     TokenMultiTaskModel,
     TokenVisionTransformerMoE,
 )
+from m3vit_tpu_torch.models.resnet import ResNet, resnet18, resnet50
 from m3vit_tpu_torch.models.vit import VisionTransformer
 from m3vit_tpu_torch.models.vit_moe import VisionTransformerMoE
 from m3vit_tpu_torch.moe.dispatch import parse_capacity_factor
@@ -95,6 +109,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOKEN_BACKBONES = ("TokenVisionTransformer_moe", "Token_VisionTransformer_moe",
                    "token_moe")
 
+#: the MTL methods of the CNN configs, by the JAX factory's names
+#: (factory.py:253-255; ``pad_net`` is the configs' spelling of padnet)
+MTL_METHODS = ("cross_stitch", "nddr_cnn", "mtan", "padnet", "mti_net")
+
+_ITEM8B = "ROADMAP queue 1 item 8b"
+
 
 def _img_size(kw) -> Tuple[int, int]:
     v = kw.get("img_size", (512, 512))
@@ -150,9 +170,43 @@ def build_backbone(p: Dict, num_tasks: int):
             **common)
     if name in ("VisionTransformer", "VisionTransformer_dense"):
         return VisionTransformer(**common)
+    # the CNN backbones (factory.py:124-142); backbone_kwargs.pretrained
+    # is ignored, as there: they start from the seeded init
+    dtype = common["dtype"]
+    if name in ("resnet18", "resnet50"):
+        return (resnet18 if name == "resnet18" else resnet50)(
+            dilated=bool(kw.get("dilated", False)), dtype=dtype)
+    if name == "hrnet_w18":
+        return hrnet_w18(dtype=dtype)
+    if name in ("mobilenetv3", "mobilenetv3_large", "mobilenetv3_small"):
+        # backbone_kwargs.mode picks the variant, which the JAX factory
+        # ignores (it reads the name alone, factory.py:141)
+        return MobileNetV3(kw.get("mode") or (
+            "small" if name.endswith("small") else "large"), dtype=dtype)
     raise NotImplementedError(
-        f"backbone {name!r} is not ported to m3vit_tpu_torch (CNN backbones "
-        f"come with ROADMAP queue 1 item 8)")
+        f"backbone {name!r} is not ported to m3vit_tpu_torch")
+
+
+#: the CNN backbones (factory.py:124-142), by class and by config name
+CNN_BACKBONES = (ResNet, HighResolutionNet, MobileNetV3)
+CNN_NAMES = ("resnet18", "resnet50", "hrnet_w18", "mobilenetv3",
+             "mobilenetv3_large", "mobilenetv3_small")
+
+
+def is_cnn_model(model: torch.nn.Module) -> bool:
+    return any(isinstance(m, CNN_BACKBONES) for m in model.modules())
+
+
+def feature_channels(backbone: torch.nn.Module) -> int:
+    """The channels a head reads from a CNN backbone: the last stage's, or
+    HRNet's four streams concatenated."""
+    if isinstance(backbone, ResNet):
+        return backbone.stage_channels[-1]
+    if isinstance(backbone, HighResolutionNet):
+        return sum(backbone.channels)
+    if isinstance(backbone, MobileNetV3):
+        return backbone.out_channels
+    raise TypeError(f"{type(backbone).__name__} is not a CNN backbone")
 
 
 def build_token_backbone(p: Dict, num_tasks: int) -> TokenVisionTransformerMoE:
@@ -183,18 +237,24 @@ def build_token_backbone(p: Dict, num_tasks: int) -> TokenVisionTransformerMoE:
         use_checkpointing=bool(p.get("use_checkpointing", False)))
 
 
-def build_head(p: Dict, num_output: int) -> VisionTransformerUpHead:
-    """The PUP head of config `p` for a task with `num_output` channels
-    (factory.py:146-167, its VisionTransformerUpHead branch: four 3x3
-    convs and four upsamplings), returning TAM's features in training when
-    model_kwargs.tam is set."""
+def build_head(p: Dict, num_output: int, in_channels: int = 0
+               ) -> torch.nn.Module:
+    """The head of config `p` for a task with `num_output` channels
+    (factory.py:146-171): the PUP head (its VisionTransformerUpHead
+    branch: four 3x3 convs and four upsamplings), returning TAM's
+    features in training when model_kwargs.tam is set; or, on a CNN
+    backbone's `in_channels`, the ``deeplab`` (ASPP) or ``hrnet`` head."""
     name = p.get("head", "VisionTransformerUpHead")
+    dtype = _DTYPES[p.get("compute_dtype", "bfloat16")]
+    if name == "deeplab":
+        return DeepLabHead(in_channels, num_output, dtype=dtype)
+    if name == "hrnet":
+        return HighResolutionHead(in_channels, num_output, dtype=dtype)
     # the reference's token head is the same PUP head (factory.py:151-153)
     if name not in ("VisionTransformerUpHead",
                     "TokenVisionTransformerUpHead"):
         raise NotImplementedError(
-            f"head {name!r} is not ported to m3vit_tpu_torch (the deeplab "
-            f"and hrnet heads come with ROADMAP queue 1 item 8)")
+            f"head {name!r} is not ported to m3vit_tpu_torch")
     kw = dict(p.get("head_kwargs") or {})
     shape = (int(kw.get("num_conv", 4)), int(kw.get(
         "num_upsampe_layer", kw.get("num_upsample_layer", 4))),
@@ -206,7 +266,7 @@ def build_head(p: Dict, num_output: int) -> VisionTransformerUpHead:
     return VisionTransformerUpHead(
         img_size=_img_size(kw), patch_size=int(kw.get("patch_size", 16)),
         embed_dim=int(kw.get("embed_dim", 384)), num_classes=num_output,
-        dtype=_DTYPES[p.get("compute_dtype", "bfloat16")],
+        dtype=dtype,
         return_tam_features=bool((p.get("model_kwargs") or {}).get(
             "tam", False)))
 
@@ -224,50 +284,118 @@ def build_model(p: Dict, device=None, seed: int = 0
     router (the TaskConditionedMultiTaskModel, factory.py:334-338); a token
     backbone name the TokenMultiTaskModel, whatever `model` says
     (factory.py:276-318).  use_checkpointing rematerialises the backbone's
-    blocks in training.
+    blocks in training.  On a CNN backbone (CNN_NAMES) the baseline and
+    the MTL methods (MTL_METHODS, ``_build_mtl_method``).
     Weights are f32, drawn from `seed`; the model is returned in eval mode
     on the card unless device="cpu" (raises when CUDA is absent and no
-    device was given)."""
+    device was given).  A CNN model is built on the device and drawn there
+    by a generator of that device, so its weights depend on the device's
+    generator as well as on the seed; the other models are drawn on the
+    CPU."""
     dev = resolve_device(device)
     model_name = p.get("model", "baseline")
-    token = p.get("backbone") in TOKEN_BACKBONES
-    if model_name not in ("baseline", "token_moe"):
-        raise NotImplementedError(
-            f"model {model_name!r} is not ported to m3vit_tpu_torch (the MTL "
-            f"methods and mixture_baseline: ROADMAP queue 1 item 8)")
+    # the configs' spelling of padnet (factory.py:253)
+    model_name = {"pad_net": "padnet"}.get(model_name, model_name)
     tasks = parse_task_dictionary(p["train_db_name"], p["task_dictionary"])[0]
+    if model_name not in ("baseline", "token_moe") + MTL_METHODS:
+        raise NotImplementedError(
+            f"model {model_name!r} is not ported to m3vit_tpu_torch "
+            f"(papnet_vit, jtrl and mixture_baseline: {_ITEM8B})")
+    if model_name in MTL_METHODS or p.get("backbone") in CNN_NAMES:
+        # built and drawn on the device: a CNN config holds up to 160M
+        # parameters, which the CPU takes seconds to draw
+        with torch.device(dev):
+            model = _build_mtl_method(p, model_name, tasks) \
+                if model_name in MTL_METHODS else _compose(p, tasks)
+        init_weights(model, torch.Generator(device=dev).manual_seed(seed))
+        return model.eval(), tasks
+    model = _compose(p, tasks)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval(), tasks
+
+
+def _compose(p: Dict, tasks: List[TaskSpec]) -> torch.nn.Module:
+    """The backbone, a head a task and the single- or multi-task model
+    around them (build_model's cases but the MTL methods)."""
     names = [t.name for t in tasks]
-    decoders = {t.name: build_head(p, t.num_output) for t in tasks}
-    multi_gate = bool(p.get("multi_gate", False))
-    if token:
-        model = TokenMultiTaskModel(build_token_backbone(p, len(tasks)),
-                                    decoders, names)
-        init_weights(model, torch.Generator().manual_seed(seed))
-        return model.to(dev).eval(), tasks
+    if p.get("backbone") in TOKEN_BACKBONES:
+        decoders = {t.name: build_head(p, t.num_output) for t in tasks}
+        return TokenMultiTaskModel(build_token_backbone(p, len(tasks)),
+                                   decoders, names)
     backbone = build_backbone(p, len(tasks))
+    vit = isinstance(backbone, (VisionTransformer, VisionTransformerMoE))
+    cin = 0 if vit else feature_channels(backbone)
+    decoders = {t.name: build_head(p, t.num_output, cin) for t in tasks}
+    multi_gate = bool(p.get("multi_gate", False))
     conditioned = p["setup"] == "multi_task" and int(
         p.get("gate_task_specific_dim", -1)) > 0
     if conditioned and not multi_gate:
-        model = MultiTaskModel(
+        return MultiTaskModel(
             backbone, decoders, names, multi_gate=True,
             shared_prefix=bool(p.get("shared_prefix", False)),
             stacked_tasks=p.get("stacked_tasks", False),
             scan_tasks=p.get("scan_tasks", False))
-    elif p["setup"] == "single_task" and isinstance(backbone,
-                                                    VisionTransformer):
-        model = SingleTaskModel(backbone, decoders[names[0]], names[0])
-    elif p["setup"] in ("single_task", "multi_task"):
-        mk = p.get("model_kwargs") or {}
-        model = MultiTaskModel(
-            backbone, decoders, names, multi_gate=multi_gate,
-            shared_prefix=bool(p.get("shared_prefix", False)),
-            tam=bool(mk.get("tam", False)) and p["setup"] == "multi_task",
-            tam_levels=[bool(mk.get(f"tam_level{i}", True))
-                        for i in range(3)],
-            num_outputs={t.name: t.num_output for t in tasks},
-            stacked_tasks=p.get("stacked_tasks", False),
-            scan_tasks=p.get("scan_tasks", False))
-    else:
+    if p["setup"] == "single_task" and not isinstance(
+            backbone, VisionTransformerMoE):
+        return SingleTaskModel(backbone, decoders[names[0]], names[0])
+    if p["setup"] not in ("single_task", "multi_task"):
         raise ValueError(f"setup {p['setup']!r}")
-    init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(dev).eval(), tasks
+    mk = p.get("model_kwargs") or {}
+    return MultiTaskModel(
+        backbone, decoders, names, multi_gate=multi_gate,
+        shared_prefix=bool(p.get("shared_prefix", False)),
+        tam=bool(mk.get("tam", False)) and p["setup"] == "multi_task",
+        tam_levels=[bool(mk.get(f"tam_level{i}", True)) for i in range(3)],
+        num_outputs={t.name: t.num_output for t in tasks},
+        stacked_tasks=p.get("stacked_tasks", False),
+        scan_tasks=p.get("scan_tasks", False))
+
+
+def _build_mtl_method(p: Dict, model_name: str,
+                      tasks: List[TaskSpec]) -> torch.nn.Module:
+    """The MTL method `model_name` of config `p` (factory.py:176-238):
+    Cross-Stitch and NDDR-CNN on one ResNet a task, MTAN on one shared
+    ResNet (its 2x2 max-pools after stages 0-2, or after stage 0 alone
+    when dilated), PAD-Net on a ResNet, MTI-Net on HRNet-W18 with HRNet
+    heads.  The ResNet is ResNet-50 when the backbone's name has "50",
+    else ResNet-18, dilated unless backbone_kwargs.dilated is false (so
+    PAD-Net on an hrnet_w18 config runs on an undilated ResNet-18, as the
+    JAX factory builds it).  The auxiliary tasks are those of
+    auxilary_task_dictionary, else the tasks."""
+    names = [t.name for t in tasks]
+    aux = tasks
+    if "auxilary_task_dictionary" in p:
+        aux = parse_task_dictionary(p["train_db_name"],
+                                    p["auxilary_task_dictionary"])[0]
+    aux_names = [t.name for t in aux]
+    num_outputs = {t.name: t.num_output for t in list(aux) + list(tasks)}
+    dtype = _DTYPES[p.get("compute_dtype", "bfloat16")]
+    dilated = bool((p.get("backbone_kwargs") or {}).get("dilated", True))
+
+    def resnet_bb() -> ResNet:
+        make = resnet50 if "50" in str(p.get("backbone", "resnet18")) \
+            else resnet18
+        return make(dilated=dilated, dtype=dtype)
+
+    if model_name in ("cross_stitch", "nddr_cnn"):
+        backbones = {t: resnet_bb() for t in names}
+        channels = backbones[names[0]].stage_channels
+        heads = {t.name: build_head(p, t.num_output, channels[-1])
+                 for t in tasks}
+        cls = CrossStitchNetwork if model_name == "cross_stitch" else NDDRCNN
+        return cls(backbones, heads, names, channels)
+    if model_name == "mtan":
+        bb = resnet_bb()
+        heads = {t.name: build_head(p, t.num_output, bb.stage_channels[-1])
+                 for t in tasks}
+        return MTAN(bb, heads, names, bb.stage_channels,
+                    downsample=(True, False, False, False) if dilated
+                    else (True, True, True, False))
+    if model_name == "padnet":
+        bb = resnet_bb()
+        return PADNet(bb, bb.stage_channels[-1], names, aux_names,
+                      num_outputs)
+    bb = hrnet_w18(dtype=dtype)
+    heads = {t.name: HighResolutionHead(sum(bb.channels), t.num_output,
+                                        dtype=dtype) for t in tasks}
+    return MTINet(bb, heads, names, aux_names, num_outputs)

@@ -11,7 +11,7 @@ and cast to the compute dtype at use.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,10 +19,6 @@ from torch import nn
 
 from m3vit_tpu_torch import parallel
 from m3vit_tpu_torch.models.vit import _hooked, conv2d, layer_norm
-
-#: flax BatchNorm momentum 0.9 (running = 0.9 running + 0.1 batch) is
-#: torch's momentum 0.1 (heads.py:59-60)
-BN_MOMENTUM = 0.1
 
 
 def init_conv_lecun(weight: torch.Tensor, fan_in: int,
@@ -53,16 +49,18 @@ def sync_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     y = xc * (torch.rsqrt(var + bn.eps) * bn.weight).reshape(shape) \
         + bn.bias.reshape(shape)
     with torch.no_grad():
-        bn.running_mean.lerp_(mean, BN_MOMENTUM)
-        bn.running_var.lerp_(var, BN_MOMENTUM)
+        bn.running_mean.lerp_(mean, bn.momentum)
+        bn.running_var.lerp_(var, bn.momentum)
         bn.num_batches_tracked.add_(1)
     return y
 
 
 def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor,
                training: bool) -> torch.Tensor:
-    """flax BatchNorm(momentum 0.9, dtype f32) with `bn`'s parameters and
-    statistics, eps bn.eps: in eval by the running statistics (on x in
+    """flax BatchNorm(momentum 1 - bn.momentum, dtype f32) with `bn`'s
+    parameters and statistics, eps bn.eps (flax's momentum 0.9, running =
+    0.9 running + 0.1 batch, is nn.BatchNorm2d's default momentum 0.1;
+    heads.py:59-60): in eval by the running statistics (on x in
     f32); in training by the batch's, computed in f32 (a bf16 input is
     normalised in f32 and rounded once), folding the batch's *biased*
     variance into running_var as flax does, where torch.nn.BatchNorm2d
@@ -76,17 +74,19 @@ def _batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor,
     if not training:
         return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
                             bn.weight, bn.bias, False, 0.0, bn.eps)
-    if parallel.active() is not None:
+    n = x.numel() // x.shape[1]
+    if parallel.active() is not None or n == 1:
+        # F.batch_norm refuses one value a channel in training (a pooled
+        # [1, C, 1, 1] map); flax normalises it to its bias
         return sync_batch_norm(bn, x)
     # F.batch_norm folds the batch statistics into copies (autograd keeps
     # the tensors it was given); torch folds var * n / (n - 1) into
     # running_var, flax the biased var: undo the factor when copying back
-    n = x.numel() // x.shape[1]
     mean, var = bn.running_mean.clone(), bn.running_var.clone()
-    y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, BN_MOMENTUM,
+    y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, bn.momentum,
                      bn.eps)
     with torch.no_grad():
-        kept = (1.0 - BN_MOMENTUM) * bn.running_var
+        kept = (1.0 - bn.momentum) * bn.running_var
         bn.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
         bn.running_mean.copy_(mean)
         bn.num_batches_tracked.add_(1)
@@ -94,10 +94,15 @@ def _batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor,
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """align_corners=False bilinear resize of NCHW x (heads.py:21-26); for
-    these upsamplings it matches jax.image.resize."""
+    """align_corners=False bilinear upsampling of NCHW x (heads.py:21-26),
+    which matches jax.image.resize.  Raises when asked to shrink a side:
+    jax.image.resize antialiases a downsampling and F.interpolate does
+    not."""
     if tuple(x.shape[-2:]) == tuple(size):
         return x
+    if size[0] < x.shape[-2] or size[1] < x.shape[-1]:
+        raise ValueError(f"resize_bilinear upsamples only: "
+                         f"{tuple(x.shape[-2:])} -> {tuple(size)}")
     return F.interpolate(x, size=tuple(size), mode="bilinear",
                          align_corners=False)
 
@@ -135,9 +140,11 @@ class VisionTransformerUpHead(nn.Module):
         y = batch_norm(getattr(self, f"syncbn_fc_{i}"), x, self.training)
         return F.relu(y.to(self.dtype))
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor,
+                noise: Optional[torch.Generator] = None):
         """x [B, N, C] tokens -> [B, num_classes, H, W] f32 (with the TAM
-        features in training when return_tam_features)."""
+        features in training when return_tam_features); noise is unused
+        (the head draws nothing)."""
         h = self.img_size[0] // self.patch_size
         w = self.img_size[1] // self.patch_size
         if x.shape[1] % 48 != 0:  # drop cls tokens when present

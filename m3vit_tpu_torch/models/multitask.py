@@ -65,7 +65,7 @@ class SingleTaskModel(nn.Module):
             raise ValueError(f"this model runs {self.task!r} only, not "
                              f"{single_task!r}")
         feats, cv, stats = _run_backbone(self.backbone, x, None, noise)
-        out = resize_bilinear(_prediction(self.decoder(feats)),
+        out = resize_bilinear(_prediction(self.decoder(feats, noise)),
                               tuple(x.shape[-2:]))
         return {self.task: out}, cv, stats
 
@@ -98,12 +98,13 @@ class MultiTaskModel(nn.Module):
             tid = self.tasks.index(single_task) if self.multi_gate else None
             feats, cv, stats = _run_backbone(self.backbone, x, tid, noise)
             out[single_task] = resize_bilinear(
-                _prediction(self.decoders[single_task](feats)), out_size)
+                _prediction(self.decoders[single_task](feats, noise)),
+                out_size)
             return out, cv, stats
         deep: List[Dict[str, torch.Tensor]] = [{}, {}, {}]
 
         def decode(task, feats):
-            ret = self.decoders[task](feats)
+            ret = self.decoders[task](feats, noise)
             if isinstance(ret, tuple):
                 for lvl in range(3):
                     deep[lvl][task] = ret[1 + lvl]

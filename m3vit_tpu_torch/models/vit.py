@@ -79,10 +79,12 @@ def linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
-    """nn.Conv2d on x with its f32 weight and bias cast to `dtype`."""
+    """nn.Conv2d on x with its f32 weight and bias (if any) cast to
+    `dtype`."""
+    bias = None if conv.bias is None else conv.bias.to(dtype)
     return _hooked(conv, x, F.conv2d(x.to(dtype), conv.weight.to(dtype),
-                                     conv.bias.to(dtype), conv.stride,
-                                     conv.padding))
+                                     bias, conv.stride, conv.padding,
+                                     conv.dilation, conv.groups))
 
 
 def set_use_kernels(model: nn.Module, flag: bool) -> None:

@@ -27,6 +27,7 @@ given (step.py:48-62).
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -93,7 +94,8 @@ def make_train_step(model: torch.nn.Module, tasks: List[str],
                     schedule: Callable[[int], float],
                     cv_weight: float = 0.01,
                     analysis_metrics: bool = False,
-                    accumulation_steps: int = 1):
+                    accumulation_steps: int = 1,
+                    loss_scheme: Optional[Callable] = None):
     """Returns train_step(batch, noise, share_temp=None) -> metrics, with
     the count of calls (micro-batches) in ``train_step.step``; share_temp
     (the token model's Gumbel temperature of the epoch) goes to the model
@@ -104,8 +106,15 @@ def make_train_step(model: torch.nn.Module, tasks: List[str],
     micro-batch: loss_<task>, loss_total, loss_cv, loss_total_with_cv and
     moe_dropped_frac (mean over MoE blocks and tasks); with
     analysis_metrics also those of ``analysis``.  accumulation_steps: the
-    config's, as build_optimizer read it."""
+    config's, as build_optimizer read it.  loss_scheme: loss(pred, batch)
+    -> {name: loss, "total": ...} (``losses.schemes.loss_scheme_of``),
+    the weighted multi-task sum by default; each of its terms is a
+    metric."""
     accum = max(int(accumulation_steps), 1)
+    if loss_scheme is None:
+        loss_scheme = functools.partial(multi_task_loss, tasks=tasks,
+                                        loss_fns=loss_fns,
+                                        loss_weights=loss_weights)
 
     def train_step(batch: Dict[str, torch.Tensor],
                    noise: Optional[torch.Generator] = None,
@@ -119,7 +128,7 @@ def make_train_step(model: torch.nn.Module, tasks: List[str],
         with (collect_gate_stats(model) if analysis_metrics
               else contextlib.nullcontext()):
             pred, cv, stats = model(batch["image"], noise=noise, **kw)
-        losses = multi_task_loss(pred, batch, tasks, loss_fns, loss_weights)
+        losses = loss_scheme(pred, batch)
         # the balance loss is the global batch's on every rank: it counts
         # once over the world
         total = losses["total"] + cv_weight * cv / parallel.world_size()

@@ -20,14 +20,77 @@ blocks (models/token_moe.py: ``share_pred``, the block-level routers,
 expert banks and shared FFN, the task-conditioned attention's
 parameters), named as m3vit_tpu/utils/torch_interop.py:
 reference_token_sd_to_params (:471-539) reads them.
+
+A tree with no ViT in it (the CNN backbones, heads and MTL methods) goes
+through ``cnn_variables_to_state_dict``: the port names those modules as
+the JAX package does, but for torchvision's ResNet names.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Iterable
 
 import numpy as np
 import torch
+
+#: flax module names -> the port's (torchvision's ResNet names, ModuleDicts)
+_CNN_RENAMES = (
+    (re.compile(r"^layer(\d+)_(\d+)$"), r"layer\1.\2"),
+    (re.compile(r"^ds_conv$"), "downsample.0"),
+    (re.compile(r"^ds_bn$"), "downsample.1"),
+    (re.compile(r"^(backbones|heads|decoders)_(.+)$"), r"\1.\2"),
+)
+
+
+def _cnn_name(flax_name: str) -> str:
+    for pat, rep in _CNN_RENAMES:
+        if pat.match(flax_name):
+            return pat.sub(rep, flax_name)
+    return flax_name
+
+
+def cnn_variables_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
+    """flax variables of a CNN model (m3vit_tpu/models/resnet.py, hrnet.py,
+    mobilenetv3.py, cnn_heads.py, mtl_methods.py and the Single- /
+    MultiTaskModel around them) -> the port's state dict: conv kernels
+    [kh, kw, in, out] -> [out, in, kh, kw], dense kernels transposed,
+    BatchNorm scale / bias / batch_stats mean / var -> weight / bias /
+    running_mean / running_var with num_batches_tracked 0, and a bare
+    array (a Cross-Stitch weight) as it is; module names through
+    ``_CNN_RENAMES`` (``layer1_0`` -> ``layer1.0``, ``ds_conv`` ->
+    ``downsample.0``, ``heads_{task}`` -> ``heads.{task}``, ...)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(key, v):
+        sd[key] = torch.from_numpy(np.array(v, dtype=np.float32))
+
+    def walk(prefix: str, p: Dict, stats: Dict) -> None:
+        if "kernel" in p:
+            k = np.asarray(p["kernel"])
+            put(prefix + "weight",
+                k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T)
+            if "bias" in p:
+                put(prefix + "bias", p["bias"])
+            return
+        if "scale" in p:
+            put(prefix + "weight", p["scale"])
+            put(prefix + "bias", p["bias"])
+            scale = np.asarray(p["scale"])
+            put(prefix + "running_mean",
+                stats.get("mean", np.zeros_like(scale)))
+            put(prefix + "running_var", stats.get("var", np.ones_like(scale)))
+            sd[prefix + "num_batches_tracked"] = torch.tensor(0)
+            return
+        for name, v in p.items():
+            if isinstance(v, dict) or hasattr(v, "items"):
+                walk(prefix + _cnn_name(name) + ".", v,
+                     stats.get(name, {}))
+            else:
+                put(prefix + name, v)
+
+    walk("", variables["params"], variables.get("batch_stats") or {})
+    return sd
 
 
 def jax_variables_to_state_dict(variables: Dict, tasks: Iterable,
@@ -67,6 +130,8 @@ def jax_variables_to_state_dict(variables: Dict, tasks: Iterable,
             put(prefix + ".w_gate", v[0])
 
     bb = params.get("backbone", params)
+    if "pos_embed" not in bb:
+        return cnn_variables_to_state_dict(variables)
     if "gate_task_represent" in bb:
         g = bb["gate_task_represent"]
         dense("backbone.gate_task_represent.fc1", g["fc1"])

@@ -23,7 +23,8 @@ SMALL = dict(img=32, embed=128, depth=2, heads=2, experts=4, top_k=2)
 def _port_files():
     return sorted((ROOT / "m3vit_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "time_ffn_fwd.py",
-        ROOT / "scripts" / "time_ffn_q.py"]
+        ROOT / "scripts" / "time_ffn_q.py",
+        ROOT / "scripts" / "cnn_grad_precision.py"]
 
 
 def _imported_roots(source):

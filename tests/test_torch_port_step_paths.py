@@ -899,9 +899,9 @@ def test_factory_model_matches_jax(model_runs, case):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("backbone", "resnet18", "queue 1 item 8"),
-    ("head", "deeplab", "queue 1 item 8"),
-    ("model", "mtan", "queue 1 item 8"),
+    ("model", "papnet_vit", "queue 1 item 8b"),
+    ("model", "jtrl", "queue 1 item 8b"),
+    ("model", "mixture_baseline", "queue 1 item 8b"),
     ("stacked_tasks", True, "queue 1 item 7b"),
 ])
 def test_build_model_refuses_what_is_not_ported(key, value, match):
