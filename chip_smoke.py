@@ -32,7 +32,7 @@ random weights) along each of its paths, the kernels' launch counts set to
 - cli: the trainer CLI (m3vit_tpu_torch.cli.train) on a PASCAL-Context
   tree fabricated by scripts/fabricate_dataset.py, with the headline
   config: the worker loader against in-process loading, then a run
-  stopped after 11 steps, its --resume (the rest, one evaluation, the
+  stopped after 6 steps, its --resume (the rest, one evaluation, the
   best-model and epoch checkpoints), --eval and --eval
   --save_predictions, launches counted over each run; a checkpoint loaded
   into a fresh model and optimizer; the CLI's step time beside a
@@ -73,6 +73,11 @@ random weights) along each of its paths, the kernels' launch counts set to
   on the same weights, batch and masks; MTI-Net on a fabricated NYUD tree
   through the CLI (stop, resume, eval) with its deep-supervision loss;
   K1-K7 launched 0 times on all of it.
+- knobs: the research knobs on the flagship (the sem step with forced
+  routing and the regularisers, expert windows with pruned scores, the
+  stacked pass, the decoupled gate ViT, distilled, a pruned model), each
+  against its plain path, and two CLI runs with the knobs on a view of
+  the cli tree (the sem warm-up switching the step, stacked tasks).
 Each phase prints one JSON line; the line before the last is nvidia-smi's
 card name and power limit, and the last line is {"ok": true, "device":
 {...}}.  Any failed check exits non-zero before that line; without CUDA the
@@ -129,7 +134,15 @@ from m3vit_tpu_torch.moe.gating import (  # noqa: E402
     noisy_vmoe_gate,
     small_topk,
 )
+from m3vit_tpu_torch.moe.pruning import (  # noqa: E402
+    collect_expert_usage,
+    dense_gates,
+    prune_experts_in_state_dict,
+    select_top_experts,
+    usage_to_masks,
+)
 from m3vit_tpu_torch.models.token_moe import transition_stage  # noqa: E402
+from m3vit_tpu_torch.models.vit_moe import prune_scores  # noqa: E402
 from m3vit_tpu_torch.ops import _build  # noqa: E402
 from m3vit_tpu_torch.ops.expert_ffn import (  # noqa: E402
     BWD_KSTEP,
@@ -197,7 +210,7 @@ GRAD_REL_TOL, GRAD_ABS_FRAC = 1e-2, 2e-2
 # (limits about 10x and 2x the readings on an H100: 8.9e-6 in two runs, and
 # at most 0.0094 per group)
 TRAIN_LOSS_REL_TOL, BACKBONE_GRAD_REL_TOL = 1e-4, 2e-2
-TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 8, 10, 5
+TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 8, 10, 3
 # gradient accumulation: the kernel path's gradient after its two
 # micro-batches against the mean of the two micro-batches' gradients taken
 # one by one on the same path, per parameter group, to
@@ -207,8 +220,8 @@ TRAIN_BATCH, TRAIN_STEPS, TIMED_STEPS = 8, 10, 5
 # backbone: 1.1-1.2% on an H100), which the run measures and reports; a
 # lost micro-batch or a missing 1/k is off by 50% or more
 ADAM_STEPS, ADAM_LR = 5, 5e-5   # optimizer steps (two micro-batches each)
-DENSE_REQUESTS = 25      # timed bucket-8 requests of the dense ViT
-LN_MLP_REQUESTS = 20     # timed bucket-8 requests of the ln_mlp serving path
+DENSE_REQUESTS = 12      # timed bucket-8 requests of the dense ViT
+LN_MLP_REQUESTS = 10     # timed bucket-8 requests of the ln_mlp serving path
 LOSS_WEIGHTS = {"semseg": 1.0, "human_parts": 2.0, "sal": 5.0, "edge": 50.0,
                 "normals": 10.0}
 # bench.py:316-322: SGD, lr 0.002, momentum 0.9, wd 1e-4, poly over 100
@@ -245,8 +258,8 @@ DENSE_CONFIG = {
 # (bf16 dense tensor-core FLOP/s, HBM bytes/s) by device name, from NVIDIA's
 # data sheet (H100 SXM5, at its 700 W limit)
 PEAKS = {"NVIDIA H100 80GB HBM3": (989e12, 3.35e12)}
-REQUESTS = 20            # timed requests per serving cell
-EVAL_REPS = 5
+REQUESTS = 10            # timed requests per serving cell
+EVAL_REPS = 3
 
 failures = []
 
@@ -401,10 +414,14 @@ def call_memory_mb(fn) -> float:
 
 
 # (B, N, C, heads, valid keys) of K1's cases: the flagship's, then the
-# token model's streams (T*B sequences; TOKEN_FFN_SHAPES has its FFNs)
+# token model's streams (T*B sequences; TOKEN_FFN_SHAPES has its FFNs;
+# also the stacked 5-task pass's rows), then the research knobs' paths:
+# the small gate ViT (12 heads of 32) and the distilled flagship (two
+# prefix tokens)
 ATTENTION_SHAPES = ((8, 1025, 384, 6, None), (8, 1025, 384, 6, 1000),
                     (1, 1025, 384, 6, None), (40, 1025, 384, 6, None),
-                    (4, 1201, 768, 12, None))
+                    (4, 1201, 768, 12, None), (8, 1025, 384, 12, None),
+                    (8, 1026, 384, 6, None))
 
 
 def attention_phase(peaks, dev):
@@ -494,6 +511,13 @@ TOKEN_FFN_SHAPES = (
     ("token_base_experts_train", 16, compute_capacity(2402, 2, 16, 1.25),
      768, 1536),
     ("token_base_dense_mlp_streams", 1, 2 * 2402, 768, 3072))
+# ... and on the research knobs' paths: the stacked 5-task pass's experts
+# (40 rows of 1025 tokens, K 4, cf 1.25) and a bank pruned to 8 experts at
+# the no-drop serving capacity (bucket 8)
+KNOBS_FFN_SHAPES = (
+    ("stacked_experts_train", 16, compute_capacity(41000, 4, 16, 1.25), 384,
+     384),
+    ("pruned_experts_eval_nodrop", 8, 8200, 384, 384))
 WIDE_FFN_Q_SHAPES = (
     ("vit_base_bucket_8", 16, compute_capacity(8200, 2, 16, 4.0), 768, 1536),
     ("vit_base_bucket_1", 16, compute_capacity(1025, 2, 16, 4.0), 768, 1536))
@@ -507,11 +531,12 @@ def ffn_phase(peaks, dev):
     # eval's no-drop capacity (every token); B=8, 1025 tokens per image;
     # then the wider models' shapes
     nodrop = compute_capacity(8 * 1025, 4, 16, parse_capacity_factor("nodrop"))
-    for name, E, Ct, d, Hd in (("experts", 16, 4104, 384, 384),
-                               ("dense_mlp", 1, 8200, 384, 1536),
-                               ("experts_train", 16, 2568, 384, 384),
-                               ("experts_eval_nodrop", 16, nodrop, 384,
-                                384)) + WIDE_FFN_SHAPES + TOKEN_FFN_SHAPES:
+    for name, E, Ct, d, Hd in (
+            ("experts", 16, 4104, 384, 384),
+            ("dense_mlp", 1, 8200, 384, 1536),
+            ("experts_train", 16, 2568, 384, 384),
+            ("experts_eval_nodrop", 16, nodrop, 384, 384)) + WIDE_FFN_SHAPES \
+            + TOKEN_FFN_SHAPES + KNOBS_FFN_SHAPES:
         r = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
         # unit-scale tokens (LayerNorm output) and fan-in scaled weights
         h = r(E, Ct, d).bfloat16()
@@ -645,7 +670,8 @@ def ffn_bwd_phase(peaks, dev):
     for name, E, Ct, d, Hd in (("experts", 16, 2568, 384, 384),
                                ("dense_mlp", 1, 8200, 384, 1536)
                                ) + WIDE_FFN_BWD_SHAPES + tuple(
-            c for c in TOKEN_FFN_SHAPES if "eval" not in c[0]):
+            c for c in TOKEN_FFN_SHAPES + KNOBS_FFN_SHAPES
+            if "eval" not in c[0]):
         r = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
         h = r(E, Ct, d).bfloat16()
         w1 = (r(E, Hd, d) * d ** -0.5).bfloat16()
@@ -1051,27 +1077,45 @@ class RoutingTape:
     replaying forward's own scores at the recorded experts (the VMoE gate's
     softmax probabilities; the learned-noise gate's logits, its k scores
     renormalised), so the gates stay differentiable.  Counts the tokens
-    whose own top-k set differs from the recording.  Installed in place of
-    the MoE block's gate functions; for this script's comparisons only."""
+    whose own top-k set differs from the recording.  expert_prune's
+    decisions (which scores pass the threshold) are recorded and replayed
+    alike, the flips counted.  Installed in place of the MoE block's gate
+    and prune functions; for this script's comparisons only."""
 
     def __init__(self):
         self.tape, self.replaying, self.pos = [], False, 0
         self.tokens = self.rerouted = 0
+        self.kept, self.kpos, self.prune_flips = [], 0, 0
 
     def __enter__(self):
         vit_moe.noisy_vmoe_gate = token_moe.noisy_vmoe_gate = self.gate
         vit_moe.noisy_gate = self.learned_gate
-        self.pos = 0
+        vit_moe.prune_scores = self.prune
+        self.pos = self.kpos = 0
         return self
 
     def __exit__(self, *exc):
         vit_moe.noisy_vmoe_gate = token_moe.noisy_vmoe_gate = \
             noisy_vmoe_gate
         vit_moe.noisy_gate = noisy_gate
-        if not exc[0] and self.replaying and self.pos != len(self.tape):
+        vit_moe.prune_scores = prune_scores
+        if not exc[0] and self.replaying and (self.pos != len(self.tape)
+                                              or self.kpos != len(self.kept)):
             raise RuntimeError(f"replayed {self.pos} of {len(self.tape)} "
-                               "gate calls")
+                               f"gate calls, {self.kpos} of {len(self.kept)} "
+                               "prunes")
         self.replaying = True
+
+    def prune(self, top_gates, threshold):
+        own = top_gates > threshold
+        if not self.replaying:
+            self.kept.append(own)
+            keep = own
+        else:
+            keep = self.kept[self.kpos]
+            self.kpos += 1
+            self.prune_flips += int((keep != own).sum())
+        return torch.where(keep, top_gates, 0.0)
 
     def _tape(self, out, scores, top_k, renormalise: bool):
         if not self.replaying:
@@ -1093,16 +1137,13 @@ class RoutingTape:
             top_k_indices=idx[:, :top_k], top_k_gates=gates, top_logits=top,
             gates=torch.zeros_like(scores).scatter(1, idx[:, :top_k], gates))
 
-    def gate(self, gate_inp, w_gate, *, top_k, noise_std=1.0, noise=None,
-             clean_logits=None):
-        out = noisy_vmoe_gate(gate_inp, w_gate, top_k=top_k,
-                              noise_std=noise_std, noise=noise,
-                              clean_logits=clean_logits)
+    def gate(self, gate_inp, w_gate, *, top_k, **kw):
+        out = noisy_vmoe_gate(gate_inp, w_gate, top_k=top_k, **kw)
         return self._tape(out, torch.softmax(out.noisy_logits, dim=-1),
                           top_k, False)
 
-    def learned_gate(self, gate_inp, w_gate, w_noise, *, top_k, noise=None):
-        out = noisy_gate(gate_inp, w_gate, w_noise, top_k=top_k, noise=noise)
+    def learned_gate(self, gate_inp, w_gate, w_noise, *, top_k, **kw):
+        out = noisy_gate(gate_inp, w_gate, w_noise, top_k=top_k, **kw)
         return self._tape(out, out.noisy_logits, top_k, True)
 
 
@@ -1979,7 +2020,8 @@ def eval_nodrop_phase(dev):
 # the cli phase: a fabricated PASCAL-Context tree of CLI_IMAGES images at
 # PASCAL-Context's usual 375 x 500, the headline config at full width
 CLI_CONFIG = "configs/pascal/vit_moe_small_multi_task.yml"
-CLI_IMAGES, CLI_HW, CLI_BATCH = 64, (375, 500), 8
+CLI_IMAGES, CLI_HW, CLI_BATCH = 32, (375, 500), 8
+CLI_STOP = 6                 # run 1 stops after 6 steps (2 into epoch 1)
 CLI_EVAL_REL_TOL = 1e-5      # --eval against the results of run 2's eval
 CLI_PHASE_LIMIT_S = 150.0
 
@@ -2027,14 +2069,14 @@ def cli_phase(dev, root: str):
     headline config (greedy edge matcher, 5 thresholds; its
     use_checkpointing rematerialises the blocks): the worker loader alone
     (its first batches against in-process loading, bit for bit), then four
-    in-process runs, launches counted over each: 11 steps stopped by
-    --stop_after_steps, --resume (the 5 steps left, one eval, the best
+    in-process runs, launches counted over each: CLI_STOP steps stopped by
+    --stop_after_steps, --resume (the steps left, one eval, the best
     and epoch-1 checkpoints), --eval (run 2's results) and --eval
     --save_predictions (files, edge odsF); the epoch-1 checkpoint loaded
     into a fresh model and optimizer; the CLI's ms per step beside run 1's
     own train step (analysis metrics on, as the CLI builds it) timed on a
     synthetic batch.  Leaves root/env.yml and root/config.yml (the headline
-    config as run) for the recipe phase."""
+    config as run) for the recipe and knobs phases."""
     import yaml
 
     t_phase = time.perf_counter()
@@ -2107,7 +2149,8 @@ def cli_phase(dev, root: str):
         val_batches = CLI_IMAGES // CLI_BATCH
         runs, launches = {}, {}
         with open(log_path, "w") as log, contextlib.redirect_stdout(log):
-            for name, extra in (("stop", ["--stop_after_steps", "11"]),
+            for name, extra in (("stop", ["--stop_after_steps",
+                                          str(CLI_STOP)]),
                                 ("resume", ["--resume"]),
                                 ("eval", ["--eval"]),
                                 ("save_predictions",
@@ -2125,21 +2168,23 @@ def cli_phase(dev, root: str):
         r1, r2, r3, r4 = (runs[k] for k in ("stop", "resume", "eval",
                                             "save_predictions"))
         step_dir = os.path.join(p["output_dir"], "step_checkpoint")
-        with open(os.path.join(step_dir, "meta_11.json")) as f:
+        with open(os.path.join(step_dir, f"meta_{CLI_STOP}.json")) as f:
             step_meta = json.load(f)
-        check(r1.get("stopped_at_step") == 11 and r1["steps_run"] == 11
-              and step_meta["epoch"] == 1 and step_meta["next_it"] == 3,
+        check(r1.get("stopped_at_step") == CLI_STOP
+              and r1["steps_run"] == CLI_STOP and step_meta["epoch"] == 1
+              and step_meta["next_it"] == CLI_STOP - spe,
               f"cli run 1: stopped at {r1.get('stopped_at_step')} after "
               f"{r1['steps_run']} steps, step checkpoint {step_meta}")
-        check(r2["steps_run"] == 2 * spe - 11 and r2.get("best") is not None
+        check(r2["steps_run"] == 2 * spe - CLI_STOP
+              and r2.get("best") is not None
               and os.path.exists(os.path.join(p["best_model_dir"], "1.pt"))
               and os.path.exists(os.path.join(p["checkpoint_dir"], "1.pt")),
               f"cli run 2 (--resume): {r2['steps_run']} steps, best "
               f"{r2.get('best') is not None}, checkpoints "
               f"{os.listdir(p['checkpoint_dir'])}")
         per = {}
-        for name, (S, V) in (("stop", (11, 0)), ("resume", (2 * spe - 11,
-                                                            val_batches)),
+        for name, (S, V) in (("stop", (CLI_STOP, 0)),
+                             ("resume", (2 * spe - CLI_STOP, val_batches)),
                              ("eval", (0, val_batches)),
                              ("save_predictions", (0, val_batches))):
             per[name] = check_launches(launches[name], 1,
@@ -2621,8 +2666,8 @@ LARGE_CONFIG = "configs/nyud/vit/pup_vit_large_semseg.yml"
 TINY_CONFIG = "configs/cityscapes/pup_vit_tiny_deit_multi_task_baseline.yml"
 WIDE_IMAGES = 32           # the ViT-base CLI's tree: 4 steps an epoch at B=8
 WIDE_STOP = 6              # run 1 stops after 6 steps (2 into epoch 1)
-WIDE_STEPS = 5             # timed synthetic-batch steps of each model
-WIDE_REQUESTS = 20         # timed requests per serving cell
+WIDE_STEPS = 3             # timed synthetic-batch steps of each model
+WIDE_REQUESTS = 8          # timed requests per serving cell
 WIDE_PHASE_LIMIT_S = 300.0
 
 
@@ -3039,7 +3084,7 @@ TOKEN_BASE_CONFIG = ("configs/nyud/token_moe/"
 TOKEN_IMAGES = 32          # the token phase's tree: 4 steps an epoch at B=8
 TOKEN_EPOCHS = 2           # the temperature changes once
 TOKEN_TEMP = 0.5           # the Gumbel temperature of the checks' steps
-TOKEN_REQUESTS = 20        # timed requests per serving bucket
+TOKEN_REQUESTS = 8         # timed requests per serving bucket
 TOKEN_PHASE_LIMIT_S = 200.0
 
 
@@ -3620,10 +3665,10 @@ def token_phase(dev, root: str):
 EP_CONFIG = "configs/cityscapes/vit_base_moe_ep.yml"
 EP_IMAGES, EP_HW, EP_BATCH = 32, (256, 512), 8   # 4 steps an epoch
 EP_STOP = 3                # run 1 stops after 3 steps, --resume runs 1
-EP_STEPS = 5               # timed steps of the in-process EP step
+EP_STEPS = 3               # timed steps of the in-process EP step
 EP_OBO_CALLS = 4           # one-by-one calls (2 optimizer steps) at accum 2
 EP_CHUNKS = 2              # the CLI runs' --a2a_chunks
-EP_TIMED = 20              # timed calls of the exchange and the local FFN
+EP_TIMED = 10              # timed calls of the exchange and the local FFN
 EP_LOSS_REL_TOL = 2e-3     # the EP run's first loss against the no-group run's
 EP_RUN_TIMEOUT_S = 300
 PARALLEL_PHASE_LIMIT_S = 300.0
@@ -4137,7 +4182,7 @@ CNN_BACKBONES = ("resnet18", "resnet50", "hrnet_w18", "mobilenetv3")
 CNN_TIMED = ("pascal/resnet18/multi_task_baseline.yml",
              "nyud/resnet50/cross_stitch.yml", "pascal/hrnet18/mti_net.yml",
              "cityscapes/semseg.yml")
-CNN_STEPS = 5
+CNN_STEPS = 3
 #: one config of each model kind, stepped on the card against the CPU
 CNN_KINDS = {
     "baseline_resnet18_deeplab": "pascal/resnet18/multi_task_baseline.yml",
@@ -4543,7 +4588,412 @@ def cnn_phase(dev, root: str):
     return paths
 
 
-PHASES = ("kernels", "flagship", "cli", "wide", "parallel", "token", "cnn")
+KNOBS_IMAGES = 16          # the knobs CLI runs' view of the cli tree: 2 steps an epoch
+KNOBS_NPT = 12             # regu_experts_fromtask's experts a task
+KNOBS_KEEP = 8             # experts a MoE block keeps when pruned
+KNOBS_PHASE_LIMIT_S = 150.0
+SEM_KNOBS = dict(sem_force=True, regu_sem=True, regu_subimage=True)
+REGU_KEYS = ("semregu_loss", "regu_subimage_loss")
+
+
+def blocky_semseg(dev, seed: int, B: int):
+    """Semseg labels [B, 1, IMG, IMG], one class a 16 x 16 patch: mostly
+    background (class 0: sem_force sends it to experts 0 and 1, past their
+    capacity), some 15 (person), 7 and 255 (no label)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pick = torch.tensor([0, 0, 0, 0, 0, 15, 7, 255], device=dev)
+    cls = pick[torch.randint(0, len(pick), (B, 1, IMG // 16, IMG // 16),
+                             generator=g, device=dev)]
+    return cls.repeat_interleave(16, 2).repeat_interleave(16, 3).float()
+
+
+def knobs_setup(dev, **knobs):
+    """The flagship with `knobs` (build_flagship's), its B=8 synthetic
+    batch with blocky_semseg labels, and the loss functions."""
+    model, tasks = build_flagship(device=dev, seed=0, **knobs)
+    names = [t.name for t in tasks]
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(0),
+                            tasks, TRAIN_BATCH, (IMG, IMG))
+    batch["semseg"] = blocky_semseg(dev, 1, TRAIN_BATCH)
+    return model, names, batch, {n: loss_fn_for_task(n, {"edge_w": 0.95})
+                                 for n in names}
+
+
+def knob_vs_plain(model, names, batch, loss_fns, dev, what: str, expected,
+                  sem: bool = False, alone_kw=None):
+    """train_vs_plain on a knob's path: one train-mode forward and backward
+    with kernels and on the plain path from the same state, batch (with
+    its semseg labels as `sem` when asked) and gate noise, the plain path
+    replaying the kernel path's routing: the loss (the tasks' + 0.01 cv +
+    0.01 each regulariser, as the sem step weighs them) to
+    TRAIN_LOSS_REL_TOL, each term reported; then the backbone alone
+    (called with `alone_kw`: the shared prefix or the stacked pass over
+    every task) under a fixed cotangent, each group's gradient to
+    BACKBONE_GRAD_REL_TOL.  The kernel path's forward and backward launch
+    `expected` exactly.  Leaves the model on the kernel path in its
+    initial state."""
+    T = len(names)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    kw = {"sem": batch["semseg"]} if sem else {}
+    alone_kw = alone_kw or {"shared_prefix": True}
+    vit = getattr(model.backbone, "backbone", model.backbone)  # gate ViT's
+    cotangent = torch.randn((T * TRAIN_BATCH,) + tuple(
+        vit.pos_embed.shape[1:]), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(3))
+
+    def run(kernels: bool, tape, alone: bool):
+        model.load_state_dict(init)
+        set_use_kernels(model, kernels)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        noise = torch.Generator(device=dev).manual_seed(1)
+        with tape:
+            if alone:
+                model.backbone(batch["image"], list(range(T)), noise,
+                               **alone_kw, **kw)[0].float().backward(
+                    cotangent)
+                return None, param_grads(model)
+            pred, cv, stats = model(batch["image"], noise=noise, **kw)
+            terms = {"tasks": multi_task_loss(pred, batch, names, loss_fns,
+                                              LOSS_WEIGHTS)["total"],
+                     "cv": cv, **{k: stats[k] for k in REGU_KEYS
+                                  if k in stats}}
+            total = terms["tasks"] + 0.01 * sum(
+                v for k, v in terms.items() if k != "tasks")
+            total.backward()
+            return {"total": total.item(), **{k: v.item() for k, v in
+                                              terms.items()},
+                    "dropped_frac": (stats["dropped_slot_fraction"]
+                                     / stats["moe_stat_count"]).item()}, \
+                param_grads(model)
+
+    tapes = {m: RoutingTape() for m in ("step", "backbone")}
+    _build.reset_launches()            # the knob's train path starts here
+    k_loss = run(True, tapes["step"], False)[0]
+    torch.cuda.synchronize()
+    step_launches = dict(_build.launches)   # ... and ends here
+    k_bb = run(True, tapes["backbone"], True)[1]
+    before = dict(_build.launches)
+    p_loss = run(False, tapes["step"], False)[0]
+    p_bb = run(False, tapes["backbone"], True)[1]
+    check(dict(_build.launches) == before, f"{what}: plain runs launched a "
+          "kernel")
+    per_step = check_launches(step_launches, 1, expected, f"{what} step")
+    backbone = rel_by_group(k_bb, p_bb)
+    loss_rel = abs(k_loss["total"] - p_loss["total"]) / abs(p_loss["total"])
+    check(np.isfinite(k_loss["total"]) and loss_rel <= TRAIN_LOSS_REL_TOL
+          and all(v <= BACKBONE_GRAD_REL_TOL for v in backbone.values()),
+          f"{what} train kernel vs plain: loss {k_loss} vs {p_loss} (rel "
+          f"limit {TRAIN_LOSS_REL_TOL}); backbone grad rel err under a fixed "
+          f"cotangent {backbone} (limit {BACKBONE_GRAD_REL_TOL})")
+    set_use_kernels(model, True)
+    model.load_state_dict(init)
+    model.zero_grad(set_to_none=True)
+    return {"loss_kernel": k_loss, "loss_plain": p_loss,
+            "loss_rel_err": loss_rel, "launches_per_step": per_step,
+            "backbone_cotangent": {"grad_rel_err": backbone},
+            "rerouted_token_frac": {
+                m: t.rerouted / t.tokens for m, t in tapes.items()
+                if t.tokens},
+            "prune_flips": {m: t.prune_flips for m, t in tapes.items()}}, \
+        step_launches
+
+
+def served_vs_plain(model, names, dev, what: str, expected, **knobs):
+    """A bucket-8 request of `model` kernel vs plain and against an f32
+    copy (serving_vs_plain_and_f32), the kernel pass's launches held to
+    `expected` (knobs: the model's build_flagship knobs, for the copy)."""
+    ref, _ = build_flagship(device=dev, seed=0, dtype=torch.float32, **knobs)
+    ref.load_state_dict(model.state_dict())
+    imgs = np.random.RandomState(15).randn(8, IMG, IMG, 3).astype(np.float32)
+    _build.reset_launches()            # the knob's serving path starts here
+    out = serving_vs_plain_and_f32(model, ref, names, imgs, what)
+    launches = dict(_build.launches)   # ... and ends here (plain: none)
+    out["launches_per_pass"] = check_launches(launches, 1, expected,
+                                              f"{what} serving")
+    del ref
+    return out, launches
+
+
+def moe_ids(model, fn):
+    """The final routing ids ([T, K] a MoE layer, in call order) that each
+    MoE layer dispatches during fn()."""
+    seen, orig = [], vit_moe.moe_ffn
+
+    def record(x, top_idx, *a, **k):
+        seen.append(top_idx.reshape(-1, top_idx.shape[-1]))
+        return orig(x, top_idx, *a, **k)
+
+    vit_moe.moe_ffn = record
+    try:
+        fn()
+    finally:
+        vit_moe.moe_ffn = orig
+    return seen
+
+
+def knobs_model_phase(dev):
+    """The research knobs on the flagship (ViT-small-MoE, 512^2, E 16, K 4,
+    5 PASCAL tasks, B=8, bf16, seed 0), each kernel vs plain
+    (knob_vs_plain), its launches exactly: (1) the sem step (sem_force,
+    regu_sem, regu_subimage on blocky labels whose forced background
+    overflows its experts); (2) regu_experts_fromtask (12 experts a task)
+    with expert_prune (its threshold decisions replayed with the routing),
+    every task's routing ids inside its window; (3) the
+    stacked pass, its eval forward also against the shared-prefix forward
+    at no-drop capacity (logits to LOGIT_REL_TOL); (4) MoEViTWithGate (the
+    small gate ViT, d 384, 12 heads of 32) and distilled, a train step and
+    a served bucket-8 batch each; (5) a model pruned to 8 experts a block
+    (collect_expert_usage over two batches) served against the full model
+    under the same expert masks at no-drop capacity."""
+    paths, out = {}, {}
+    T, depth = 5, 12
+    flagship_step = expected_train_launches(depth, T)
+    serve = expected_serving_launches(depth)
+
+    # (1) the sem step
+    model, names, batch, loss_fns = knobs_setup(dev, shared_prefix=True,
+                                                **SEM_KNOBS)
+    out["sem_step"], paths["knobs_sem"] = knob_vs_plain(
+        model, names, batch, loss_fns, dev, "knobs sem step", flagship_step,
+        sem=True)
+    check(out["sem_step"]["loss_kernel"]["dropped_frac"] > 0.05
+          and all(out["sem_step"]["loss_kernel"][k] > 0 for k in REGU_KEYS),
+          f"knobs sem step: forced routing dropped "
+          f"{out['sem_step']['loss_kernel']['dropped_frac']} of the slots; "
+          f"regularisers {out['sem_step']['loss_kernel']}")
+    del model
+    torch.cuda.empty_cache()
+
+    # (2) the expert windows with pruned scores
+    win = dict(regu_experts_fromtask=True, num_experts_pertask=KNOBS_NPT,
+               expert_prune=True)
+    model, names, batch, loss_fns = knobs_setup(dev, shared_prefix=True,
+                                                **win)
+    out["windows"], paths["knobs_windows"] = knob_vs_plain(
+        model, names, batch, loss_fns, dev, "knobs windows", flagship_step)
+    model.eval()
+    with torch.no_grad():
+        ids = moe_ids(model, lambda: model(batch["image"]))
+    outside = {}
+    for t, (start, off) in enumerate(vit_moe.expert_windows(16, T,
+                                                            KNOBS_NPT)):
+        ok = set(range(max(start, off), off + KNOBS_NPT))
+        got = torch.cat(ids[t * depth // 2:(t + 1) * depth // 2]).unique()
+        outside[t] = sorted(set(got.tolist()) - ok)
+    check(len(ids) == T * depth // 2 and not any(outside.values()),
+          f"knobs windows: ids outside their task's window {outside}")
+    out["windows"]["ids_outside_window"] = outside
+    del model
+    torch.cuda.empty_cache()
+
+    # (3) the stacked pass
+    model, names, batch, loss_fns = knobs_setup(dev, stacked_tasks=True)
+    stacked = {k: depth for k in ("flash_attention_fwd", "flash_attention_bwd",
+                                  "expert_ffn_fwd", "expert_ffn_bwd")}
+    out["stacked"], paths["knobs_stacked"] = knob_vs_plain(
+        model, names, batch, loss_fns, dev, "knobs stacked", stacked,
+        alone_kw={"stacked_tasks": True})
+    model.eval()
+    for blk in model.backbone.blocks[1::2]:
+        blk.mlp.eval_capacity_factor = parse_capacity_factor("nodrop")
+    with torch.no_grad():
+        _build.reset_launches()
+        st = model(batch["image"])[0]
+        eval_launches = dict(_build.launches)
+        model.stacked_tasks, model.shared_prefix = False, True
+        sp = model(batch["image"])[0]
+    rel_err = max(rel(st[n], sp[n]) for n in names)
+    check(rel_err <= LOGIT_REL_TOL,
+          f"knobs stacked eval vs shared prefix: logit rel err {rel_err} "
+          f"(limit {LOGIT_REL_TOL})")
+    out["stacked"]["eval_vs_shared_prefix"] = {
+        "logit_rel_err": rel_err, "launches": check_launches(
+            eval_launches, 1, {"flash_attention_fwd": depth,
+                               "expert_ffn_fwd": depth},
+            "knobs stacked eval")}
+    paths["knobs_stacked_eval"] = eval_launches
+    del model, st, sp
+    torch.cuda.empty_cache()
+
+    # (4) the decoupled gate ViT, and distilled
+    gate_vit = {k: v + depth for k, v in flagship_step.items()}
+    for key, knobs, step_exp, serve_exp in (
+            ("gate_vit", {"gate_model": "small"}, gate_vit,
+             {k: v + depth for k, v in serve.items()}),
+            ("distilled", {"distilled": True}, flagship_step, serve)):
+        model, names, batch, loss_fns = knobs_setup(dev, shared_prefix=True,
+                                                    **knobs)
+        out[key], paths[f"knobs_{key}"] = knob_vs_plain(
+            model, names, batch, loss_fns, dev, f"knobs {key}", step_exp)
+        model.eval()
+        out[key]["serving"], paths[f"knobs_{key}_serving"] = \
+            served_vs_plain(model, names, dev, f"knobs {key}", serve_exp,
+                            **knobs)
+        del model
+        torch.cuda.empty_cache()
+
+    # (5) a pruned model against the full one under the same masks
+    nodrop = parse_capacity_factor("nodrop")
+    full, tasks = build_flagship(device=dev, seed=0,
+                                 eval_capacity_factor=nodrop)
+    names = [t.name for t in tasks]
+    batches = [{"image": synthetic_batch(
+        torch.Generator(device=dev).manual_seed(s), tasks, TRAIN_BATCH,
+        (IMG, IMG))["image"]} for s in (4, 5)]
+    usage = collect_expert_usage(dense_gates(full, "semseg"), batches,
+                                 depth // 2)
+    keep = select_top_experts(usage, KNOBS_KEEP)
+    masks = [m.to(dev) for m in usage_to_masks(keep, 16)]
+    pruned, _ = build_flagship(device=dev, seed=0, experts=KNOBS_KEEP,
+                               eval_capacity_factor=nodrop)
+    pruned.load_state_dict(prune_experts_in_state_dict(
+        full.state_dict(), {2 * j + 1: k for j, k in enumerate(keep)}))
+    x = torch.randn(8, 3, IMG, IMG, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    with torch.no_grad():
+        ref = full(x, single_task="semseg", expert_mask=masks)[0]["semseg"]
+        _build.reset_launches()
+        got = pruned(x, single_task="semseg")[0]["semseg"]
+        prune_launches = dict(_build.launches)
+    agree, rel_err = logit_agreement(
+        *(t.permute(0, 2, 3, 1).float().cpu().numpy() for t in (got, ref)))
+    check(rel_err <= LOGIT_REL_TOL and agree >= AGREE_MIN,
+          f"knobs pruned vs masked: logit rel err {rel_err} (limit "
+          f"{LOGIT_REL_TOL}), class-map agreement {agree} (min {AGREE_MIN})")
+    out["pruned"] = {"kept": [k.tolist() for k in keep],
+                     "logit_rel_err": rel_err, "class_map_agreement": agree,
+                     "launches_per_pass": check_launches(
+                         prune_launches, 1, serve, "knobs pruned serving")}
+    paths["knobs_pruned_serving"] = prune_launches
+    del full, pruned
+    torch.cuda.empty_cache()
+    emit({"phase": "knobs_models", **out})
+    return paths
+
+
+def knobs_cli_phase(dev, root: str):
+    """Two CLI runs on a 16-image view of the cli phase's PASCAL tree
+    (its files, the first KNOBS_IMAGES ids of its lists): (a) the headline
+    config with --sem_force --regu_sem --regu_subimage
+    --regu_experts_fromtask --num_experts_pertask 12 --expert_prune
+    --gate_input_ahead --warmup_epochs 1 for 2 epochs, the regularisers in
+    metrics.jsonl in epoch 0 only; (b) --stacked_tasks with the sem knobs,
+    1 epoch.  Launches counted over each run."""
+    import yaml
+
+    src = os.path.join(root, "PASCAL_MT")
+    view = os.path.join(root, "knobs", "PASCAL_MT")
+    if not os.path.isdir(src):   # a run without the cli phase: its tree
+        here = os.path.dirname(os.path.abspath(__file__))
+        subprocess.run(
+            [sys.executable, "-c",
+             "import sys; sys.path.insert(0, sys.argv[1]); "
+             "from fabricate_dataset import fabricate_pascal; "
+             "fabricate_pascal(sys.argv[2], int(sys.argv[3]), "
+             "(int(sys.argv[4]), int(sys.argv[5])))",
+             os.path.join(here, "scripts"), src, str(KNOBS_IMAGES),
+             *map(str, CLI_HW)], check=True, timeout=300)
+        with open(os.path.join(here, CLI_CONFIG)) as f:
+            exp = yaml.safe_load(f)
+        exp.update(edge_odsF_matcher="greedy", edge_odsF_thresholds=5)
+        with open(os.path.join(root, "config.yml"), "w") as f:
+            yaml.safe_dump(exp, f)
+    for sub in os.listdir(src):
+        if sub != "ImageSets":
+            os.makedirs(view, exist_ok=True)
+            os.symlink(os.path.join(src, sub), os.path.join(view, sub))
+    for sub in ("Context", "Parts"):
+        os.makedirs(os.path.join(view, "ImageSets", sub))
+        for split in ("train", "val"):
+            with open(os.path.join(src, "ImageSets", sub,
+                                   f"{split}.txt")) as f:
+                text = f.read()
+            if sub == "Context":
+                text = "\n".join(text.split("\n")[:KNOBS_IMAGES])
+            else:
+                ids = text and json.loads(text)
+                text = json.dumps(dict(list(ids.items())[:KNOBS_IMAGES]))
+            with open(os.path.join(view, "ImageSets", sub, f"{split}.txt"),
+                      "w") as f:
+                f.write(text)
+    env = os.path.join(root, "knobs", "env.yml")
+    with open(env, "w") as f:
+        yaml.safe_dump({"root_dir": os.path.join(root, "knobs", "runs"),
+                        "dataset_roots": {"PASCAL_MT": view}}, f)
+    spe = val_batches = KNOBS_IMAGES // CLI_BATCH
+    runs, paths = {}, {}
+    sem = ["--sem_force", "--regu_sem", "--regu_subimage",
+           "--warmup_epochs", "1"]
+    for name, extra, epochs in (
+            ("knobs_cli", sem + ["--regu_experts_fromtask",
+                                 "--num_experts_pertask", str(KNOBS_NPT),
+                                 "--expert_prune", "--gate_input_ahead"], 2),
+            ("knobs_cli_stacked", sem + ["--stacked_tasks"], 1)):
+        argv = ["--config_env", env, "--config_exp",
+                os.path.join(root, "config.yml"), "--trBatch",
+                str(CLI_BATCH), "--valBatch", str(CLI_BATCH), "--epochs",
+                str(epochs), "--moe_eval_capacity_factor", "nodrop",
+                "--log_interval", "1", "--run_name", name] + extra
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _build.reset_launches()        # the knob's cli path starts here
+        with open(os.path.join(root, "knobs", f"{name}.log"), "w") as log, \
+                contextlib.redirect_stdout(log):
+            res = cli_main(argv)
+        torch.cuda.synchronize()
+        paths[name] = dict(_build.launches)   # ... and ends here
+        steps = spe * epochs
+        if name == "knobs_cli":
+            expected = expected_cli_launches(steps, val_batches)
+        else:   # one pass of 12 blocks over the task stack, remat
+            expected = {"flash_attention_fwd": 24 * steps + 12 * val_batches,
+                        "flash_attention_bwd": 12 * steps,
+                        "expert_ffn_fwd": 24 * steps + 12 * val_batches,
+                        "expert_ffn_bwd": 12 * steps}
+        lines = []
+        for dirpath, _, files in os.walk(os.path.join(root, "knobs",
+                                                      "runs")):
+            if "metrics.jsonl" in files and name in dirpath:
+                with open(os.path.join(dirpath, "metrics.jsonl")) as f:
+                    lines = [json.loads(ln) for ln in f]
+        train = [ln for ln in lines if "train/total_loss" in ln]
+        regu = [ln["train/epoch"] for ln in train
+                if "train/semregu_loss" in ln
+                and "train/regu_subimage_loss" in ln]
+        check(res["steps_run"] == steps and len(train) == steps
+              and regu == [0] * spe,
+              f"{name}: {res['steps_run']} steps, {len(train)} logged, "
+              f"the regularisers logged in epochs {regu}")
+        runs[name] = {"seconds": time.perf_counter() - t0,
+                      "steps": res["steps_run"],
+                      "step_times": res["step_times"],
+                      "regularisers_logged_in_epochs": regu,
+                      "semregu_loss": [ln.get("train/semregu_loss")
+                                       for ln in train],
+                      "launches": check_launches(paths[name], 1, expected,
+                                                 name)}
+        del res
+        torch.cuda.empty_cache()
+    emit({"phase": "knobs_cli", "images": KNOBS_IMAGES, **runs})
+    return paths
+
+
+def knobs_phase(dev, root: str):
+    """The research-knob slice's paths (knobs_model_phase, knobs_cli_phase)
+    within KNOBS_PHASE_LIMIT_S; their launches by path."""
+    t0 = time.perf_counter()
+    paths = knobs_model_phase(dev)
+    paths.update(knobs_cli_phase(dev, root))
+    phase_s = time.perf_counter() - t0
+    check(phase_s < KNOBS_PHASE_LIMIT_S,
+          f"knobs phases took {phase_s:.1f} s (limit {KNOBS_PHASE_LIMIT_S})")
+    emit({"phase": "knobs_total", "seconds": phase_s})
+    return paths
+
+
+PHASES = ("kernels", "flagship", "cli", "knobs", "wide", "parallel", "token",
+          "cnn")
 
 
 def main(argv=None) -> int:
@@ -4642,6 +5092,10 @@ def main(argv=None) -> int:
             paths.update(recipe_phase(dev, root))
             torch.cuda.empty_cache()
             lap("recipe")
+        if "knobs" in only:
+            paths.update(knobs_phase(dev, root))
+            torch.cuda.empty_cache()
+            lap("knobs")
         if "wide" in only:
             wide_root = os.path.join(root, "wide")
             os.makedirs(wide_root)
@@ -4686,6 +5140,13 @@ def main(argv=None) -> int:
     token_train = ("token_cli", "token_tc_cli", "token_tc_nyud_joint",
                    "token_tc_nyud_shared_prefix", "token_base_train")
     token_serving_paths = ("token_serving", "token_base_serving")
+    # the research knobs: the flagship's knob steps and the CLI runs; the
+    # stacked eval, the gate ViT's and distilled serving, the pruned model
+    knobs_train = ("knobs_sem", "knobs_windows", "knobs_stacked",
+                   "knobs_gate_vit", "knobs_distilled", "knobs_cli",
+                   "knobs_cli_stacked")
+    knobs_serving = ("knobs_stacked_eval", "knobs_gate_vit_serving",
+                     "knobs_distilled_serving", "knobs_pruned_serving")
     fwd_paths = train_paths[:1] + ("serving", "int8_serving",
                                    "ln_mlp_serving") + train_paths[1:] + (
         "eval_nodrop", "dense_serving", "recipe_dropout_eval")
@@ -4694,16 +5155,17 @@ def main(argv=None) -> int:
             ("flash_attention_fwd", "flash_attention.py:103",
              fwd_paths + ("recipe_dropout_train",) + wide_train
              + ("vit_large_ln_mlp_train",) + wide_serving + token_train
-             + token_serving_paths),
+             + token_serving_paths + knobs_train + knobs_serving),
             ("flash_attention_bwd", "flash_attention.py:125",
              train_paths + ("recipe_dropout_train",) + wide_train
-             + ("vit_large_ln_mlp_train",) + token_train),
+             + ("vit_large_ln_mlp_train",) + token_train + knobs_train),
             ("expert_ffn_fwd", "expert_ffn.py:145",
              fwd_paths + wide_train + wide_serving + ("parallel_dispatch",)
-             + token_train + token_serving_paths),
+             + token_train + token_serving_paths + knobs_train
+             + knobs_serving),
             ("expert_ffn_bwd", "expert_ffn.py:203",
              train_paths + wide_train + ("parallel_dispatch",)
-             + token_train),
+             + token_train + knobs_train),
             ("ln_mlp_fwd", "ln_mlp.py:129",
              ("ln_mlp_train", "ln_mlp_serving", "wide_cli_ln_mlp",
               "wide_cli_ln_mlp_synthetic_step", "vit_large_ln_mlp_train")),

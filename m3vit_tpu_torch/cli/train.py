@@ -40,8 +40,15 @@ reports the tensors it left at their initial values.  use_checkpointing
 <output_dir>/forward_hook.log (utils/tracing.py); --flops and --time
 report the FLOPs and the latency of a forward on one image and exit;
 --profile_dir records a torch.profiler trace of the first train steps.
-Flags of features not ported yet raise NotImplementedError naming their
-ROADMAP.md item.
+The research knobs (--sem_force, --regu_sem, --regu_subimage,
+--regu_experts_fromtask with --num_experts_pertask, --expert_prune,
+--gate_input_ahead) and --stacked_tasks set the config's keys; with a
+sem-guided knob and a semseg task, the first --warmup_epochs epochs train
+with the batch's semseg labels fed to the model and the regularisers
+weighted into the loss (--semregu_loss_weight, --subimageregu_weight),
+the later ones without (--one_by_one runs without them throughout, as the
+JAX CLI does); under torch.distributed they raise.  Flags of features not
+ported raise NotImplementedError naming why.
 
 Example (a fabricated tree: scripts/fabricate_dataset.py):
   python -m m3vit_tpu_torch.cli.train --config_env env.yml \\
@@ -112,27 +119,26 @@ from m3vit_tpu_torch.utils.torch_interop import (
     validate_reference_moe_checkpoint,
 )
 
-_ITEM7B = ("the research knobs, stacked tasks and the scan strategies, "
+_ITEM7B = ("the research knobs and stacked tasks under torch.distributed, "
            "ROADMAP.md queue 1 item 7b")
 _ITEM8B = "the CNN models under torch.distributed, ROADMAP.md queue 1 item 8b"
 _ITEM10 = "sequence parallelism, ROADMAP.md queue 1 item 10"
+_SCAN = ("a lax.scan compile strategy of the JAX package, which ROADMAP.md "
+         "lists as not to port")
 
 #: flags of the JAX CLI whose feature the port lacks: (flag, takes a
 #: value, why); any use raises NotImplementedError
 UNPORTED = (
     ("--n_seq", True, _ITEM10),
-    ("--stacked_tasks", False, _ITEM7B), ("--scan_tasks", False, _ITEM7B),
-    ("--scan_blocks", False, _ITEM7B),
-    ("--no_scan_tasks_remat", False, _ITEM7B),
-    ("--expert_prune", False, _ITEM7B),
-    ("--regu_experts_fromtask", False, _ITEM7B),
-    ("--num_experts_pertask", True, _ITEM7B), ("--regu_sem", False, _ITEM7B),
-    ("--sem_force", False, _ITEM7B), ("--regu_subimage", False, _ITEM7B),
-    ("--semregu_loss_weight", True, _ITEM7B),
-    ("--subimageregu_weight", True, _ITEM7B),
-    ("--warmup_epochs", True, _ITEM7B), ("--gate_input_ahead", False, _ITEM7B),
+    ("--scan_tasks", False, _SCAN), ("--scan_blocks", False, _SCAN),
+    ("--no_scan_tasks_remat", False, _SCAN),
     ("--platform", True, "a JAX option; the port takes --device"),
 )
+
+#: the config keys of the research knobs and stacked tasks (their flags'
+#: overrides), which a run under torch.distributed refuses
+KNOB_KEYS = ("stacked_tasks", "expert_prune", "regu_experts_fromtask",
+             "sem_force", "regu_sem", "regu_subimage", "gate_input_ahead")
 
 
 def parse_args(argv=None):
@@ -158,6 +164,30 @@ def parse_args(argv=None):
                     help="'noisy_vmoe' (default) or 'noisy' (reference "
                          "--moe_gate_arch)")
     ap.add_argument("--moe_mlp_ratio", type=float, default=None)
+    ap.add_argument("--stacked_tasks", action="store_true",
+                    help="run the multi-gate task passes as one backbone "
+                         "pass over a task-major stack of the batch (same "
+                         "parameters and losses)")
+    # research knobs (reference train_fastmoe.py:107-155)
+    ap.add_argument("--expert_prune", action="store_true",
+                    help="zero gate scores at or below prune_threshold")
+    ap.add_argument("--regu_experts_fromtask", action="store_true",
+                    help="restrict each task to a window of experts")
+    ap.add_argument("--num_experts_pertask", type=int, default=None)
+    ap.add_argument("--regu_sem", action="store_true",
+                    help="semantic prior head on gate logits (warmup epochs)")
+    ap.add_argument("--sem_force", action="store_true",
+                    help="force routing by semantic class groups (warmup)")
+    ap.add_argument("--regu_subimage", action="store_true",
+                    help="subimage routing-consistency KL (warmup epochs)")
+    ap.add_argument("--semregu_loss_weight", type=float, default=0.01)
+    ap.add_argument("--subimageregu_weight", type=float, default=0.01)
+    ap.add_argument("--gate_input_ahead", action="store_true",
+                    help="gate input = each MoE block's input tokens "
+                         "(reference origin/vision_transformer_moe.py:276)")
+    ap.add_argument("--warmup_epochs", type=int, default=5,
+                    help="epochs during which the sem-guided knobs are "
+                         "active (reference train_utils.py:424)")
     ap.add_argument("--one_by_one", action="store_true",
                     help="per-task forward/backward with the gradients "
                          "added up, one optimizer step per batch (per "
@@ -461,10 +491,22 @@ def _config(args):
         overrides["use_pallas_ln_mlp"] = False
     if args.shared_prefix:
         overrides["shared_prefix"] = True
+    if args.num_experts_pertask is not None:
+        overrides["num_experts_pertask"] = args.num_experts_pertask
+    for k in KNOB_KEYS:
+        if getattr(args, k):
+            overrides[k] = True
     if args.overfit:
         overrides["overfit"] = True
     p = create_config(args.config_env, args.config_exp, overrides,
                       make_dirs=True)
+    if p.get("stacked_tasks") and p.get("shared_prefix"):
+        raise SystemExit("--stacked_tasks / --shared_prefix are mutually "
+                         "exclusive multi-gate execution strategies; pick "
+                         "one")
+    if p.get("stacked_tasks") and not p.get("multi_gate"):
+        print("WARNING: stacked_tasks has no effect without multi_gate; "
+              "running the shared-gate path")
     conditioned = int(p.get("gate_task_specific_dim", -1)) > 0
     if args.task_one_hot:
         # task-conditioned training is one task a pass (reference
@@ -525,7 +567,8 @@ def load_pretrained_backbone(model: torch.nn.Module, path: str, p: Dict,
                        if moe else None),
         top_k=bb.blocks[1].mlp.top_k if moe else 4,
         target_grid=(int(img[0]) // patch, int(img[1]) // patch),
-        use_weight_scaling=use_weight_scaling)
+        use_weight_scaling=use_weight_scaling,
+        num_prefix=1 if getattr(bb, "dist_token", None) is None else 2)
     if not pos_emb_from_pretrained:
         loaded.pop("pos_embed", None)
     missing = load_into_model(model, loaded, prefix="backbone.")
@@ -637,6 +680,12 @@ def _run(args, p, device, logger, loaders, preempted, layout=None) -> Dict:
         raise NotImplementedError(
             f"{p.get('model', 'baseline')} on {p['backbone']} is not ported "
             f"to m3vit_tpu_torch ({_ITEM8B})")
+    knobs = [k for k in KNOB_KEYS if p.get(k)] + (
+        ["distilled"] if (p.get("backbone_kwargs") or {}).get("distilled")
+        else [])
+    if layout is not None and knobs:
+        raise NotImplementedError(
+            f"{', '.join(knobs)}: {_ITEM7B} (not ported to m3vit_tpu_torch)")
     if p.get("compute_dtype") == "float32":
         # the config asks for f32: no TF32 (10-bit mantissa) in the run's
         # cuDNN convolutions and matmuls, torch's default for cuDNN (``run``
@@ -712,15 +761,32 @@ def _run(args, p, device, logger, loaders, preempted, layout=None) -> Dict:
 
     cv_w = float(args.moe_noisy_gate_loss_weight) if p.get("use_cv_loss") \
         else 0.0
+    # the sem-guided knobs read the semseg labels, during the warm-up
+    # epochs only (m3vit_tpu/cli/train.py:517-521, :655-664, :787-788)
+    use_sem = any(p.get(k) for k in ("sem_force", "regu_sem",
+                                     "regu_subimage")) \
+        and "semseg" in tasks and isinstance(
+            getattr(model, "backbone", None), VisionTransformerMoE) \
+        and not args.one_by_one
     if args.one_by_one:
+        # the one-by-one step runs without the labels, as in the JAX CLI
+        # (cli/train.py:787-800)
         train_step = make_one_by_one_train_step(
             model, tasks, loss_fns, loss_weights, optimizer, lr_schedule,
             cv_weight=cv_w, accumulation_steps=accum)
     else:
-        train_step = make_train_step(
-            model, tasks, loss_fns, loss_weights, optimizer, lr_schedule,
-            cv_weight=cv_w, analysis_metrics=True, accumulation_steps=accum,
-            loss_scheme=loss_scheme_of(p, tasks, loss_fns, loss_weights))
+        step_args = (model, tasks, loss_fns, loss_weights, optimizer,
+                     lr_schedule)
+        make_kw = dict(cv_weight=cv_w, analysis_metrics=True,
+                       accumulation_steps=accum, loss_scheme=loss_scheme_of(
+                           p, tasks, loss_fns, loss_weights))
+        train_step = make_train_step(*step_args, **make_kw)
+        if use_sem:
+            train_step = warmup_switch(train_step, make_train_step(
+                *step_args, pass_sem=True,
+                semregu_weight=float(args.semregu_loss_weight),
+                subimage_weight=float(args.subimageregu_weight), **make_kw),
+                int(args.warmup_epochs))
     # stats-carrying eval step: evaluate_online enforces the reference's
     # no-drop semantics on dropped_slot_fraction (see _DropGuard)
     eval_step = make_eval_step(model, tasks, with_stats=True)
@@ -823,7 +889,7 @@ def _run(args, p, device, logger, loaders, preempted, layout=None) -> Dict:
         # a mid-epoch resume starts the sampler at it0: the batches before
         # it are never read
         batches = to_device(train_loader.epoch(epoch, start=it0), device)
-        step_kw = {}
+        step_kw = {"epoch": epoch} if use_sem else {}
         if use_share_temp:
             step_kw["share_temp"] = share_pred_temperature(p, epoch)
             out.setdefault("share_temps", {})[epoch] = step_kw["share_temp"]
@@ -911,6 +977,24 @@ def _run(args, p, device, logger, loaders, preempted, layout=None) -> Dict:
                         train_step.step, layout=layout)
 
     return {"best": best, **out}
+
+
+def warmup_switch(plain_step, sem_step, warmup_epochs: int):
+    """step(batch, noise, epoch, **kw): sem_step (the sem-guided knobs'
+    step) while epoch < warmup_epochs, plain_step after; ``step.step``
+    counts the calls of both, so the lr schedule and a resumed run go on
+    from it."""
+
+    def step(batch, noise=None, epoch: int = 0, **kw):
+        fn = sem_step if epoch < warmup_epochs else plain_step
+        fn.step = step.step
+        try:
+            return fn(batch, noise, **kw)
+        finally:
+            step.step = fn.step
+
+    step.step = 0
+    return step
 
 
 def rank0(layout) -> bool:

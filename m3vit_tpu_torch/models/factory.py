@@ -22,6 +22,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from m3vit_tpu_torch.models.cnn_heads import DeepLabHead, HighResolutionHead
+from m3vit_tpu_torch.models.gate_vit import (
+    MoEViTWithGate,
+    vit_gate_base,
+    vit_gate_small,
+)
 from m3vit_tpu_torch.models.heads import VisionTransformerUpHead
 from m3vit_tpu_torch.models.hrnet import HighResolutionNet, hrnet_w18
 from m3vit_tpu_torch.models.mobilenetv3 import MobileNetV3
@@ -71,18 +76,27 @@ def build_flagship(img: int = 512, embed: int = 384, depth: int = 12,
                    eval_capacity_factor: float = 2.0,
                    vmoe_noisy_std: float = 1.0, shared_prefix: bool = False,
                    expert_weights_int8: bool = False, ln_mlp: bool = False,
-                   device=None, seed: int = 0,
-                   **left_out) -> Tuple[MultiTaskModel, List[TaskSpec]]:
+                   device=None, seed: int = 0, stacked_tasks: bool = False,
+                   gate_model: Optional[str] = None,
+                   **knobs) -> Tuple[MultiTaskModel, List[TaskSpec]]:
     """ViT-small-MoE multi-gate multi-task model with f32 weights drawn
     from `seed`, computing in `dtype`, returned in eval mode (``.train()``
     for the train path).  expert_weights_int8 builds int8 expert banks
     (load them with ``serve.quantize.quantize_expert_state_dict``; serving
     only); ln_mlp fuses the dense blocks' LayerNorm + MLP + residual (the
-    JAX use_pallas_ln_mlp).  Runs on CUDA unless device="cpu" is passed;
-    raises when CUDA is absent and no device was given."""
+    JAX use_pallas_ln_mlp); stacked_tasks runs the task passes as one
+    stacked pass; gate_model "small" / "base" routes on a decoupled gate
+    ViT's features (``MoEViTWithGate``, models/gate_vit.py); `knobs` go to
+    the backbone (the research knobs, distilled, dropout, remat).  Runs on
+    CUDA unless device="cpu" is passed; raises when CUDA is absent and no
+    device was given."""
     dev = resolve_device(device)
     tasks = tasks or parse_task_dictionary("PASCALContext",
                                            PASCAL_TASK_DICT)[0]
+    gate_vit = None
+    if gate_model is not None:
+        gate_vit = GATE_MODELS[gate_model]((img, img), dtype)
+        knobs["gate_dim"] = gate_vit.embed_dim
     backbone = VisionTransformerMoE(
         img_size=(img, img), patch_size=16, embed_dim=embed, depth=depth,
         num_heads=heads, mlp_ratio=4.0, qkv_bias=True, moe_mlp_ratio=1.0,
@@ -90,7 +104,9 @@ def build_flagship(img: int = 512, embed: int = 384, depth: int = 12,
         num_tasks=len(tasks), vmoe_noisy_std=vmoe_noisy_std,
         capacity_factor=capacity_factor,
         eval_capacity_factor=eval_capacity_factor, dtype=dtype,
-        expert_weights_int8=expert_weights_int8, ln_mlp=ln_mlp, **left_out)
+        expert_weights_int8=expert_weights_int8, ln_mlp=ln_mlp, **knobs)
+    if gate_vit is not None:
+        backbone = MoEViTWithGate(backbone, gate_vit)
     decoders = {
         t.name: VisionTransformerUpHead(
             img_size=(img, img), patch_size=16, embed_dim=embed,
@@ -98,12 +114,16 @@ def build_flagship(img: int = 512, embed: int = 384, depth: int = 12,
         for t in tasks
     }
     model = MultiTaskModel(backbone, decoders, [t.name for t in tasks],
-                           multi_gate=True, shared_prefix=shared_prefix)
+                           multi_gate=True, shared_prefix=shared_prefix,
+                           stacked_tasks=stacked_tasks)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval(), tasks
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+#: build_flagship's decoupled gate ViTs (gate_vit.py:80-89)
+GATE_MODELS = {"small": vit_gate_small, "base": vit_gate_base}
 
 #: the backbone names of the token variant (factory.py:276-277)
 TOKEN_BACKBONES = ("TokenVisionTransformer_moe", "Token_VisionTransformer_moe",
@@ -163,8 +183,13 @@ def build_backbone(p: Dict, num_tasks: int):
             moe_gate_type=str(p.get("moe_gate_type", "noisy_vmoe")),
             expert_weights_int8=bool(p.get("expert_weights_int8", False)),
             gate_task_specific_dim=int(p.get("gate_task_specific_dim", -1)),
-            **{k: p.get(k, False) for k in (
-                "scan_blocks", "expert_prune", "regu_experts_fromtask",
+            scan_blocks=p.get("scan_blocks", False),
+            # the research knobs (factory.py:100-111)
+            expert_prune=bool(p.get("expert_prune", False)),
+            prune_threshold=float(p.get("prune_threshold", 0.1)),
+            regu_experts_fromtask=bool(p.get("regu_experts_fromtask", False)),
+            num_experts_pertask=int(p.get("num_experts_pertask", -1)),
+            **{k: bool(p.get(k, False)) for k in (
                 "sem_force", "regu_sem", "regu_subimage",
                 "gate_input_ahead")},
             **common)
@@ -330,10 +355,10 @@ def _compose(p: Dict, tasks: List[TaskSpec]) -> torch.nn.Module:
     conditioned = p["setup"] == "multi_task" and int(
         p.get("gate_task_specific_dim", -1)) > 0
     if conditioned and not multi_gate:
+        # the JAX TaskConditionedMultiTaskModel has no stacked form
         return MultiTaskModel(
             backbone, decoders, names, multi_gate=True,
             shared_prefix=bool(p.get("shared_prefix", False)),
-            stacked_tasks=p.get("stacked_tasks", False),
             scan_tasks=p.get("scan_tasks", False))
     if p["setup"] == "single_task" and not isinstance(
             backbone, VisionTransformerMoE):
@@ -347,7 +372,8 @@ def _compose(p: Dict, tasks: List[TaskSpec]) -> torch.nn.Module:
         tam=bool(mk.get("tam", False)) and p["setup"] == "multi_task",
         tam_levels=[bool(mk.get(f"tam_level{i}", True)) for i in range(3)],
         num_outputs={t.name: t.num_output for t in tasks},
-        stacked_tasks=p.get("stacked_tasks", False),
+        # the stacked pass is a multi-gate form (multitask.py:157)
+        stacked_tasks=bool(p.get("stacked_tasks", False)) and multi_gate,
         scan_tasks=p.get("scan_tasks", False))
 
 

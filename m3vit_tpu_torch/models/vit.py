@@ -30,12 +30,10 @@ from m3vit_tpu_torch.ops.flash_attention import (
 from m3vit_tpu_torch.ops.ln_mlp import fused_dense_ln_mlp
 
 
-#: options of the JAX package this port leaves out; asking for one raises
-LEFT_OUT = (
-    "scan_blocks", "stacked_tasks", "scan_tasks", "expert_prune",
-    "regu_experts_fromtask", "sem_force", "regu_sem", "regu_subimage",
-    "distilled", "gate_input_ahead",
-)
+#: options of the JAX package this port leaves out; asking for one raises.
+#: They are lax.scan compile strategies (one traced program for the
+#: blocks or the task passes), which eager PyTorch has no use for
+LEFT_OUT = ("scan_blocks", "scan_tasks")
 
 
 def reject_left_out(knobs: Dict) -> None:
@@ -44,8 +42,8 @@ def reject_left_out(knobs: Dict) -> None:
             raise TypeError(f"unexpected argument {k!r}")
         if v:
             raise NotImplementedError(
-                f"{k} is not ported to m3vit_tpu_torch (ROADMAP.md queue 1 "
-                f"item 7b)")
+                f"{k} is a lax.scan compile strategy of the JAX package, "
+                f"which ROADMAP.md lists as not to port to m3vit_tpu_torch")
 
 
 @torch.no_grad()
@@ -293,14 +291,23 @@ def drop_path_rates(rate: float, depth: int):
 
 
 def embed_tokens(backbone: nn.Module, x: torch.Tensor,
-                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Patch tokens of images x [B, 3, H, W] behind the cls token, plus the
-    position embedding, in the backbone's compute dtype, with the token
-    dropout of rate drop_rate in training (vit.py:384-412)."""
+                 rng: Optional[torch.Generator] = None,
+                 repeat: int = 1) -> torch.Tensor:
+    """Patch tokens of images x [B, 3, H, W] behind the cls token (and the
+    dist token of a distilled backbone), plus the position embedding, in
+    the backbone's compute dtype, with the token dropout of rate drop_rate
+    in training (vit.py:384-412).  repeat > 1: the tokens tiled
+    task-major to [repeat * B, ...] before the dropout, which draws a mask
+    a row (vit_moe.py:868-879)."""
     tokens = backbone.patch_embed(x)
-    cls = backbone.cls_token.to(backbone.dtype).expand(x.shape[0], -1, -1)
-    tokens = torch.cat([cls, tokens], dim=1) + backbone.pos_embed.to(
+    prefix = [backbone.cls_token]
+    if getattr(backbone, "dist_token", None) is not None:
+        prefix.append(backbone.dist_token)
+    prefix = [t.to(backbone.dtype).expand(x.shape[0], -1, -1) for t in prefix]
+    tokens = torch.cat(prefix + [tokens], dim=1) + backbone.pos_embed.to(
         backbone.dtype)
+    if repeat > 1:
+        tokens = tokens.repeat(repeat, 1, 1)
     if backbone.training:
         tokens = dropout(tokens, backbone.drop_rate, rng)
     return tokens
@@ -313,7 +320,8 @@ class VisionTransformer(nn.Module):
     run through the fused FFN (K3/K4 at E=1), or with ln_mlp the whole
     LayerNorm + MLP + residual through K5/K6, as the MoE backbone's dense
     blocks do.  drop_rate, attn_drop_rate and drop_path_rate act in
-    training; use_checkpointing rematerialises each block in training."""
+    training; use_checkpointing rematerialises each block in training.
+    distilled adds the ``dist_token`` after the cls token."""
 
     def __init__(self, img_size=(512, 512), patch_size: int = 16,
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
@@ -321,7 +329,8 @@ class VisionTransformer(nn.Module):
                  qk_scale: Optional[float] = None, dtype=torch.float32,
                  ln_mlp: bool = False, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
-                 use_checkpointing: bool = False, **left_out):
+                 use_checkpointing: bool = False, distilled: bool = False,
+                 **left_out):
         super().__init__()
         reject_left_out(left_out)
         self.dtype = dtype
@@ -330,8 +339,10 @@ class VisionTransformer(nn.Module):
         num_patches = (img_size[0] // patch_size) * (img_size[1] // patch_size)
         self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
-        self.pos_embed = nn.Parameter(torch.zeros(1, num_patches + 1,
-                                                  embed_dim))
+        self.dist_token = nn.Parameter(torch.zeros(1, 1, embed_dim)) \
+            if distilled else None
+        self.pos_embed = nn.Parameter(torch.zeros(
+            1, num_patches + (2 if distilled else 1), embed_dim))
         self.blocks = nn.ModuleList(
             DenseBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale,
                        dtype, ln_mlp, drop_rate, attn_drop_rate, dpr)
@@ -340,6 +351,8 @@ class VisionTransformer(nn.Module):
     def init_weights(self, gen: torch.Generator) -> None:
         nn.init.zeros_(self.cls_token)
         fill_normal(self.pos_embed, 0.02, gen)
+        if self.dist_token is not None:
+            fill_normal(self.dist_token, 0.02, gen)
 
     def forward(self, x: torch.Tensor, task_id=None,
                 noise: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -10,9 +10,11 @@ softplus(x @ w_noise) + 1e-2, takes the top-(k+1) of the raw logits and
 renormalises the selected k by a softmax (reference gates.py:195-280).
 Gate noise is a tensor argument of standard normals, never drawn here, so a
 caller can feed the same noise to both frameworks (the MoE block draws it
-from a ``torch.Generator``).  In training the loss is cv^2(importance) +
-cv^2(load), with the smooth load estimator while noise is active
-(``moe_aux_loss``, ``moe_aux_loss_noisy``).
+from a ``torch.Generator``).  Either gate takes an expert mask (routing
+restricted to some experts, ids kept global).  In training the loss is
+cv^2(importance) + cv^2(load), with the smooth load estimator while noise
+is active (``moe_aux_loss``, ``moe_aux_loss_noisy``), per task segment of
+a stacked pass.
 """
 
 from __future__ import annotations
@@ -54,14 +56,18 @@ def noisy_vmoe_gate(
     noise_std: float = 1.0,
     noise: Optional[torch.Tensor] = None,
     clean_logits: Optional[torch.Tensor] = None,
+    expert_mask: Optional[torch.Tensor] = None,
 ) -> GateOutput:
     """NoisyGate_VMoE forward (m3vit_tpu/moe/gating.py:77-152).
 
     gate_inp [T, d_gate], w_gate [d_gate, E]; logits in f32.  `noise`
     ([T, E] standard normal) is added scaled by noise_std / E, as in
     training; None is the eval path (no noise).  clean_logits, when given
-    ([T, E], computed by the caller: the token variant's batched gates),
-    replaces the product, and gate_inp is not read.  Differentiable in
+    ([T, E], computed by the caller: the stacked multi-gate pass's per-row
+    logits, the token variant's batched gates), replaces the product, and
+    gate_inp is not read.  expert_mask ([E] bool): routing restricted to
+    the True experts, the others' noisy logits set to -1e30 after the
+    noise, so ids stay global (gating.py:116-119).  Differentiable in
     gate_inp and w_gate (or clean_logits)."""
     num_experts = w_gate.shape[-1]
     clean_logits = gate_inp.float() @ w_gate.float() if clean_logits is None \
@@ -72,6 +78,7 @@ def noisy_vmoe_gate(
     else:
         noise_stddev = torch.tensor(noise_std / num_experts)
         noisy_logits = clean_logits + noise.float() * noise_stddev
+    noisy_logits = _masked(noisy_logits, expert_mask)
     probs = torch.softmax(noisy_logits, dim=-1)
     top_logits, top_indices = small_topk(probs, min(top_k + 1, num_experts))
     return GateOutput(
@@ -82,6 +89,16 @@ def noisy_vmoe_gate(
         noise_stddev=noise_stddev,
         top_logits=top_logits,
     )
+
+
+def _masked(logits: torch.Tensor,
+            expert_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """logits with the columns expert_mask ([E] bool) leaves out at -1e30
+    (gating.py:117-119, :343-344); logits itself without a mask."""
+    if expert_mask is None:
+        return logits
+    return torch.where(expert_mask.to(logits.device)[None, :], logits,
+                       torch.full((), -1e30, device=logits.device))
 
 
 def _normal_cdf(x: torch.Tensor) -> torch.Tensor:
@@ -121,35 +138,63 @@ def _onehot_accumulate(idx: torch.Tensor, w: torch.Tensor,
     return w.float() @ oh.float()
 
 
-def gate_importance(gate: GateOutput) -> torch.Tensor:
-    """Per-expert sum of the top-k gate probabilities, [E]
-    (gating.py:270-286)."""
+def _segment_ids(gate: GateOutput, segments: int) -> torch.Tensor:
+    """Expert ids offset into per-segment banks: a token of segment s
+    (task-major equal groups of tokens) counts into row s
+    (gating.py:247-253)."""
+    T = gate.top_k_indices.shape[0]
     E = gate.clean_logits.shape[-1]
-    return _onehot_accumulate(gate.top_k_indices.reshape(-1),
-                              gate.top_k_gates.reshape(-1), E)
+    seg = torch.arange(segments, device=gate.top_k_indices.device
+                       ).repeat_interleave(T // segments)
+    return gate.top_k_indices + seg[:, None] * E
 
 
-def gate_load_counts(gate: GateOutput) -> torch.Tensor:
-    """Per-expert routed-token counts, [E] f32 (gating.py:288-297)."""
+def _per_expert(gate: GateOutput, w: torch.Tensor,
+                segments: int) -> torch.Tensor:
     E = gate.clean_logits.shape[-1]
-    sel = (gate.top_k_gates.reshape(-1) > 0).float()
-    return _onehot_accumulate(gate.top_k_indices.reshape(-1), sel, E)
+    if segments == 1:
+        return _onehot_accumulate(gate.top_k_indices.reshape(-1), w, E)
+    return _onehot_accumulate(_segment_ids(gate, segments).reshape(-1), w,
+                              segments * E).reshape(segments, E)
+
+
+def gate_importance(gate: GateOutput, segments: int = 1) -> torch.Tensor:
+    """Per-expert sum of the top-k gate probabilities, [E], or [segments,
+    E] per task-major group of tokens (gating.py:270-286)."""
+    return _per_expert(gate, gate.top_k_gates.reshape(-1), segments)
+
+
+def gate_load_counts(gate: GateOutput, segments: int = 1) -> torch.Tensor:
+    """Per-expert routed-token counts, [E] f32, or [segments, E]
+    (gating.py:288-297)."""
+    return _per_expert(gate, (gate.top_k_gates.reshape(-1) > 0).float(),
+                       segments)
 
 
 def _cv_sum(importance: torch.Tensor, load: torch.Tensor,
             reduce) -> torch.Tensor:
+    """cv^2(importance) + cv^2(load), of [E] vectors, or summed over the
+    rows of [segments, E] ones."""
     if reduce is not None:   # one reduction for both
         importance, load = reduce(torch.stack([importance.float(),
                                                load.float()])).unbind()
-    return cv_squared(importance) + cv_squared(load)
+    if importance.dim() == 1:
+        return cv_squared(importance) + cv_squared(load)
+    return sum(cv_squared(i) + cv_squared(l)
+               for i, l in zip(importance, load))
 
 
 def moe_aux_loss(gate: GateOutput, top_k: int, num_experts: int,
                  train: bool, reduce=None,
-                 row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """cv^2(importance) + cv^2(load) for one MoE block (gating.py:195-244,
-    one segment).  Load is the smooth estimator while the noise is active
-    (stddev > 1e-6), else the hard count; 0 outside training.  `reduce`
+                 row_mask: Optional[torch.Tensor] = None,
+                 segments: int = 1) -> torch.Tensor:
+    """cv^2(importance) + cv^2(load) for one MoE block (gating.py:195-244).
+    Load is the smooth estimator while the noise is active (stddev >
+    1e-6), else the hard count; 0 outside training.  The statistics span
+    the gate's width (the logits' columns: a task's expert window under
+    regu_experts_fromtask).  segments > 1: the tokens are `segments` equal
+    task-major groups (the stacked multi-gate pass), and the loss is the
+    sum of each group's, as the per-task passes would give it.  `reduce`
     (differentiable) turns this rank's importance and load into the
     global batch's before cv^2 (data parallelism; gating.py:200-242 sees
     the whole batch).  row_mask ([T] f32 of 0/1): only those tokens count
@@ -158,15 +203,16 @@ def moe_aux_loss(gate: GateOutput, top_k: int, num_experts: int,
     count)."""
     if not train:
         return torch.zeros((), device=gate.clean_logits.device)
-    importance = gate_importance(gate)
+    importance = gate_importance(gate, segments)
     if top_k < num_experts and float(gate.noise_stddev) > 1e-6:
         smooth = prob_in_top_k(gate.clean_logits, gate.noisy_logits,
                                gate.noise_stddev, gate.top_logits, top_k)
         if row_mask is not None:
             smooth = smooth * row_mask[:, None]
-        load = smooth.sum(0)
+        load = smooth.sum(0) if segments == 1 else smooth.reshape(
+            segments, -1, smooth.shape[-1]).sum(1)
     else:
-        load = gate_load_counts(gate)
+        load = gate_load_counts(gate, segments)
     return _cv_sum(importance, load, reduce)
 
 
@@ -187,13 +233,15 @@ def noisy_gate(
     top_k: int,
     noise: Optional[torch.Tensor] = None,
     noise_epsilon: float = 1e-2,
+    expert_mask: Optional[torch.Tensor] = None,
 ) -> GateOutput:
     """NoisyGate forward, ``moe_gate_type="noisy"`` (gating.py:307-365).
 
     gate_inp [T, d_gate], w_gate and w_noise [d_gate, E]; logits in f32.
     `noise` ([T, E] standard normal) is scaled per element by
     softplus(x @ w_noise) + noise_epsilon, as in training; None is the eval
-    path (no noise, a zero stddev).  Top-(k+1) of the raw noisy logits;
+    path (no noise, a zero stddev).  expert_mask ([E] bool) as
+    noisy_vmoe_gate's.  Top-(k+1) of the raw noisy logits;
     the k selected scores are their softmax, also scattered into the dense
     ``gates`` [T, E].  Differentiable in gate_inp, w_gate and w_noise."""
     num_experts = w_gate.shape[-1]
@@ -206,6 +254,7 @@ def noisy_gate(
         noise_stddev = torch.nn.functional.softplus(x @ w_noise.float()) \
             + noise_epsilon
         noisy_logits = clean_logits + noise.float() * noise_stddev
+    noisy_logits = _masked(noisy_logits, expert_mask)
     top_logits, top_indices = small_topk(noisy_logits,
                                          min(top_k + 1, num_experts))
     top_k_indices = top_indices[:, :top_k]

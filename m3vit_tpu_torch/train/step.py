@@ -22,6 +22,14 @@ the blocks' sharing loss beside the cv loss, and it is weighted by
 cv_weight as a whole, as in the JAX package (step.py:75); the train step
 passes the epoch's Gumbel temperature (``share_temp``) to the model when
 given (step.py:48-62).
+
+With ``pass_sem`` (the sem-guided knobs' warm-up step, step.py:41-78) the
+batch's semseg labels go to the model, and the MoE blocks' regularisers
+join the total: semregu_weight x ``semregu_loss`` and subimage_weight x
+``regu_subimage_loss`` (summed over blocks and task passes), logged as
+``loss_semregu`` and ``loss_regu_subimage``.  The reference computes both
+and leaves the addition commented out; the JAX package applies it, and so
+does the port.
 """
 
 from __future__ import annotations
@@ -95,7 +103,9 @@ def make_train_step(model: torch.nn.Module, tasks: List[str],
                     cv_weight: float = 0.01,
                     analysis_metrics: bool = False,
                     accumulation_steps: int = 1,
-                    loss_scheme: Optional[Callable] = None):
+                    loss_scheme: Optional[Callable] = None,
+                    pass_sem: bool = False, semregu_weight: float = 0.01,
+                    subimage_weight: float = 0.01):
     """Returns train_step(batch, noise, share_temp=None) -> metrics, with
     the count of calls (micro-batches) in ``train_step.step``; share_temp
     (the token model's Gumbel temperature of the epoch) goes to the model
@@ -109,7 +119,8 @@ def make_train_step(model: torch.nn.Module, tasks: List[str],
     config's, as build_optimizer read it.  loss_scheme: loss(pred, batch)
     -> {name: loss, "total": ...} (``losses.schemes.loss_scheme_of``),
     the weighted multi-task sum by default; each of its terms is a
-    metric."""
+    metric.  pass_sem, semregu_weight, subimage_weight: the sem step (the
+    module docstring)."""
     accum = max(int(accumulation_steps), 1)
     if loss_scheme is None:
         loss_scheme = functools.partial(multi_task_loss, tasks=tasks,
@@ -125,6 +136,8 @@ def make_train_step(model: torch.nn.Module, tasks: List[str],
         if i % accum == 0:
             optimizer.zero_grad(set_to_none=True)
         kw = {} if share_temp is None else {"share_temp": share_temp}
+        if pass_sem:
+            kw["sem"] = batch["semseg"]
         with (collect_gate_stats(model) if analysis_metrics
               else contextlib.nullcontext()):
             pred, cv, stats = model(batch["image"], noise=noise, **kw)
@@ -132,6 +145,14 @@ def make_train_step(model: torch.nn.Module, tasks: List[str],
         # the balance loss is the global batch's on every rank: it counts
         # once over the world
         total = losses["total"] + cv_weight * cv / parallel.world_size()
+        regu = {}   # name -> (loss, weight)
+        if pass_sem:
+            for name, key, w in (("semregu", "semregu_loss", semregu_weight),
+                                 ("regu_subimage", "regu_subimage_loss",
+                                  subimage_weight)):
+                if key in stats:
+                    total = total + w * stats[key]
+                    regu[name] = (stats[key].detach(), w)
         (total / accum if accum > 1 else total).backward()
         if (i + 1) % accum == 0:
             _step(model, optimizer, schedule(i // accum))
@@ -142,6 +163,10 @@ def make_train_step(model: torch.nn.Module, tasks: List[str],
         metrics["loss_cv"] = cv.detach()
         metrics["loss_total_with_cv"] = losses["total"] + cv_weight * \
             cv.detach()
+        for k, (v, w) in regu.items():
+            metrics[f"loss_{k}"] = v
+            metrics["loss_total_with_cv"] = \
+                metrics["loss_total_with_cv"] + w * v
         if "dropped_slot_fraction" in stats:
             metrics["moe_dropped_frac"] = (
                 stats["dropped_slot_fraction"]

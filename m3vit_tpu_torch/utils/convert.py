@@ -19,7 +19,14 @@ task-conditioned router's ``gate_task_represent``, and the token model's
 blocks (models/token_moe.py: ``share_pred``, the block-level routers,
 expert banks and shared FFN, the task-conditioned attention's
 parameters), named as m3vit_tpu/utils/torch_interop.py:
-reference_token_sd_to_params (:471-539) reads them.
+reference_token_sd_to_params (:471-539) reads them.  Also the research
+knobs' parameters: a distilled backbone's ``dist_token``, each MoE
+block's ``mlp.regu_sem_head`` (the JAX package makes it only when the
+model was initialised with ``sem``, so a tree may lack it: the port's head
+then keeps its initial values, and such a state dict loads with
+strict=False, missing those keys alone), and the decoupled gate ViT of a
+``MoEViTWithGate`` (``gate_model``; its position embedding is fixed, not
+a parameter), alone or as a multi-task model's backbone.
 
 A tree with no ViT in it (the CNN backbones, heads and MTL methods) goes
 through ``cnn_variables_to_state_dict``: the port names those modules as
@@ -130,21 +137,29 @@ def jax_variables_to_state_dict(variables: Dict, tasks: Iterable,
             put(prefix + ".w_gate", v[0])
 
     bb = params.get("backbone", params)
+    pre_bb, gate_tree, pre_gate = "backbone.", None, None
+    if "gate_model" in params:     # a MoEViTWithGate alone
+        gate_tree, pre_gate = params["gate_model"], "gate_model."
+    elif "gate_model" in bb:       # ... as a multi-task model's backbone
+        gate_tree, pre_gate = bb["gate_model"], "backbone.gate_model."
+        bb, pre_bb = bb["backbone"], "backbone.backbone."
     if "pos_embed" not in bb:
         return cnn_variables_to_state_dict(variables)
     if "gate_task_represent" in bb:
         g = bb["gate_task_represent"]
-        dense("backbone.gate_task_represent.fc1", g["fc1"])
-        dense("backbone.gate_task_represent.fc2", g["fc2"])
-        norm("backbone.gate_task_represent.norm", g["norm"])
-    put("backbone.pos_embed", bb["pos_embed"])
-    put("backbone.cls_token", bb["cls_token"])
-    conv("backbone.patch_embed.proj", bb["patch_embed"]["proj"])
+        dense(pre_bb + "gate_task_represent.fc1", g["fc1"])
+        dense(pre_bb + "gate_task_represent.fc2", g["fc2"])
+        norm(pre_bb + "gate_task_represent.norm", g["norm"])
+    put(pre_bb + "pos_embed", bb["pos_embed"])
+    put(pre_bb + "cls_token", bb["cls_token"])
+    if "dist_token" in bb:
+        put(pre_bb + "dist_token", bb["dist_token"])
+    conv(pre_bb + "patch_embed.proj", bb["patch_embed"]["proj"])
     depth = 1 + max((int(k.split("_")[1]) for k in bb
                      if k.startswith("block_")), default=-1)
     for i in range(depth):
         blk = bb[f"block_{i}"]
-        pre = f"backbone.blocks.{i}."
+        pre = f"{pre_bb}blocks.{i}."
         norm(pre + "norm1", blk["norm1"])
         norm(pre + "norm2", blk["norm2"])
         attn = blk["attn"]
@@ -169,6 +184,8 @@ def jax_variables_to_state_dict(variables: Dict, tasks: Iterable,
             continue
         mlp = blk["mlp"]
         if "experts_b1" in mlp:  # MoE block
+            if "regu_sem_head" in mlp:
+                dense(pre + "mlp.regu_sem_head", mlp["regu_sem_head"])
             for w in ("w_gate", "w_noise"):
                 if w not in mlp:
                     continue
@@ -192,6 +209,19 @@ def jax_variables_to_state_dict(variables: Dict, tasks: Iterable,
         else:
             dense(pre + "mlp.fc1", mlp["fc1"])
             dense(pre + "mlp.fc2", mlp["fc2"])
+
+    if gate_tree is not None:   # the GateViT (models/gate_vit.py)
+        conv(pre_gate + "patch_embed.proj", gate_tree["patch_embed"]["proj"])
+        put(pre_gate + "cls_token", gate_tree["cls_token"])
+        norm(pre_gate + "norm", gate_tree["norm"])
+        for i in range(sum(k.startswith("block_") for k in gate_tree)):
+            blk, pre = gate_tree[f"block_{i}"], f"{pre_gate}blocks.{i}."
+            for n in ("norm1", "norm2"):
+                norm(pre + n, blk[n])
+            for n in ("qkv", "proj"):
+                dense(pre + "attn." + n, blk["attn"][n])
+            for n in ("fc1", "fc2"):
+                dense(pre + "mlp." + n, blk["mlp"][n])
 
     if "decoder" in params:     # SingleTaskModel
         heads = [("decoder.", params["decoder"],

@@ -173,6 +173,10 @@ def _map_train_metric(k: str, v) -> Dict:
         return {"train/cv_loss": v}
     if k == "loss_total_with_cv":
         return {"train/total_loss_with_cv": v}
+    if k == "loss_semregu":
+        return {"train/semregu_loss": v}
+    if k == "loss_regu_subimage":
+        return {"train/regu_subimage_loss": v}
     m = re.fullmatch(r"loss_(tam_)?level(\d)_(.+)", k)
     if m:
         tam, lvl, task = m.groups()

@@ -136,14 +136,18 @@ def deit_to_backbone_params(
     sd: Dict[str, np.ndarray], *, depth: int,
     num_experts: Optional[int] = None, expert_hidden: Optional[int] = None,
     top_k: int = 4, use_weight_scaling: bool = False,
-    target_grid: Optional[Tuple[int, int]] = None,
+    target_grid: Optional[Tuple[int, int]] = None, num_prefix: int = 1,
 ) -> Dict[str, np.ndarray]:
     """A DeiT-style state dict as the backbone's state dict (names without
     the ``backbone.`` prefix; interop :111-186): the position embedding
-    resized to target_grid with one prefix (cls) token, a distilled
-    checkpoint's second prefix token dropped, and with num_experts the odd
-    blocks' dense MLPs upcycled into expert banks.  The gates are absent
-    (they keep their initial values)."""
+    resized to target_grid with the backbone's num_prefix prefix tokens
+    (the cls token's embedding repeated where the checkpoint has another
+    count: a distilled checkpoint's second token dropped for a backbone
+    with one, the cls one doubled for a distilled backbone), a distilled
+    checkpoint's ``dist_token`` for a distilled backbone
+    (interop :142-143), and with num_experts the odd blocks' dense MLPs
+    upcycled into expert banks.  The gates are absent (they keep their
+    initial values)."""
     out: Dict[str, np.ndarray] = {}
     pos = sd["pos_embed"]
     src_prefix = pos.shape[1] - int(round((pos.shape[1] - 1) ** 0.5)) ** 2
@@ -151,10 +155,13 @@ def deit_to_backbone_params(
         src_prefix = 1
     if target_grid is not None:
         pos = interpolate_pos_embed(pos, src_prefix, target_grid)
-    if src_prefix != 1:
-        pos = np.concatenate([pos[:, :1], pos[:, src_prefix:]], axis=1)
+    if src_prefix != num_prefix:
+        pos = np.concatenate([np.repeat(pos[:, :1], num_prefix, axis=1),
+                              pos[:, src_prefix:]], axis=1)
     out["pos_embed"] = pos
     out["cls_token"] = sd["cls_token"]
+    if num_prefix == 2 and "dist_token" in sd:
+        out["dist_token"] = sd["dist_token"]
     for k in ("patch_embed.proj.weight", "patch_embed.proj.bias"):
         out[k] = sd[k]
     for i in range(depth):

@@ -70,9 +70,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_left_out_options_raise():
-    for knob in ("scan_blocks", "stacked_tasks", "sem_force"):
-        with pytest.raises(NotImplementedError, match=knob):
+    # the lax.scan compile strategies are not to port, nor is --n_seq yet
+    for knob in ("scan_blocks", "scan_tasks"):
+        with pytest.raises(NotImplementedError, match="not to port"):
             build_flagship(device="cpu", **SMALL, **{knob: True})
+    from m3vit_tpu_torch.cli import train as cli
+    with pytest.raises(NotImplementedError, match="--n_seq"):
+        cli._refuse_unported(cli.parse_args(
+            ["--config_exp", "x.yml", "--n_seq", "2"]))
+    # ported since the research-knob slice: stacked tasks and sem_force
+    model, _ = build_flagship(device="cpu", stacked_tasks=True, **SMALL)
+    assert model.stacked_tasks
+    model, _ = build_flagship(device="cpu", sem_force=True, **SMALL)
+    assert model.backbone.sem_force
     # the JAX name of the fused dense sublayer is not the port's knob
     with pytest.raises(TypeError, match="use_pallas_ln_mlp"):
         build_flagship(device="cpu", use_pallas_ln_mlp=True, **SMALL)

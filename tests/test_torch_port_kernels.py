@@ -74,16 +74,16 @@ def cuda():
 
 # (B, N, head_dim, valid_len): the flagship's N = 1025 (16 tiles of 64 and
 # one row), and N below, at and one past a 64-row tile, with valid_len 1 and
-# N - 1, at batch 1 and 3
+# N - 1, at batch 1 and 3; the distilled backbone's N = 1026
 FLASH_CASES = [(2, 1025, 32, None), (2, 1025, 64, 1000), (2, 1025, 128, None),
                (1, 77, 32, None), (3, 77, 64, 76), (1, 128, 128, 1),
                (3, 128, 32, 127), (1, 129, 64, 128), (3, 129, 128, None),
-               (3, 129, 64, 1)]
+               (3, 129, 64, 1), (2, 1026, 64, None)]
 FLASH_BWD_CASES = [(2, 1025, 32, None), (2, 1025, 64, None),
                    (2, 1025, 64, 1000), (2, 1025, 128, 77),
                    (1, 77, 64, None), (3, 77, 32, 76), (1, 128, 64, 1),
                    (3, 128, 128, 127), (1, 129, 32, 128), (3, 129, 64, None),
-                   (1, 129, 128, 1)]
+                   (1, 129, 128, 1), (2, 1026, 64, None)]
 LSE_TOL = 1e-3   # lse ~ 7-10 from f32 sums of the same bf16 products
 
 
@@ -131,13 +131,16 @@ def test_flash_kernels_lse_and_determinism(cuda, B, N, d, valid):
 # and dense MLP on the fused route, ViT-base's experts (768 x 1536) and
 # dense MLP (x 3072) and ViT-large's dense MLP (1024 x 4096, whose last
 # 192-column output tile is a third full) on the two-pass route, each also
-# at a ragged token count
+# at a ragged token count; then the research knobs' paths: the stacked
+# 5-task pass's experts (40 rows of 1025 tokens, K 4, cf 1.25: capacity
+# 12816) and a pruned bank of 8 experts at the no-drop capacity
 FFN_CASES = [(16, 520, 384, 384), (1, 1000, 384, 1536), (3, 77, 128, 256),
              (16, 2568, 384, 384), (16, 8200, 384, 384), (2, 77, 384, 384),
              (1, 40, 384, 1536),
              (16, 88, 192, 384), (1, 516, 192, 768), (3, 77, 192, 384),
              (16, 1288, 768, 1536), (1, 1000, 768, 3072), (2, 77, 768, 1536),
-             (1, 1000, 1024, 4096), (3, 40, 1024, 256)]
+             (1, 1000, 1024, 4096), (3, 40, 1024, 256),
+             (16, 12816, 384, 384), (8, 8200, 384, 384)]
 
 
 def _ffn_args(cuda, E, C, d, H, seed):
@@ -207,11 +210,13 @@ def test_flash_bwd_kernel_matches_plain(cuda, B, N, d, valid):
 # K4's cases: the flagship's expert banks at the train capacity (2568
 # tokens), its dense MLP (8200 tokens: 2 token splits of the weight
 # gradients on 132 SMs), and shorter or ragged token counts (77: rows of
-# 256 B, not a multiple of the 128-row tile; 2 splits)
+# 256 B, not a multiple of the 128-row tile; 2 splits); the stacked 5-task
+# pass's experts (capacity 12816)
 FFN_BWD_CASES = [(16, 520, 384, 384), (1, 1000, 384, 1536), (3, 77, 128, 256),
                  (16, 2568, 384, 384), (1, 8200, 384, 1536),
                  (16, 88, 192, 384), (1, 516, 192, 768), (16, 1288, 768, 1536),
-                 (2, 77, 768, 1536), (1, 1000, 1024, 4096), (3, 77, 1024, 256)]
+                 (2, 77, 768, 1536), (1, 1000, 1024, 4096), (3, 77, 1024, 256),
+                 (16, 12816, 384, 384)]
 
 
 @pytest.mark.cuda

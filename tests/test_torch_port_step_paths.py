@@ -902,11 +902,12 @@ def test_factory_model_matches_jax(model_runs, case):
     ("model", "papnet_vit", "queue 1 item 8b"),
     ("model", "jtrl", "queue 1 item 8b"),
     ("model", "mixture_baseline", "queue 1 item 8b"),
-    ("stacked_tasks", True, "queue 1 item 7b"),
+    ("scan_blocks", True, "not to port"),
 ])
 def test_build_model_refuses_what_is_not_ported(key, value, match):
     """What the JAX factory builds and the port does not yet raises, naming
-    the ROADMAP item that ports it."""
+    the ROADMAP item that ports it (or, for a lax.scan compile strategy,
+    that it is not to port)."""
     p = _config("vit_moe_small_multi_task.yml", **{key: value})
     with pytest.raises(NotImplementedError, match=match):
         build_model(p, device="cpu")
